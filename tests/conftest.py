@@ -28,3 +28,6 @@ jax.config.update("jax_platforms", "cpu")
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: slow integration tests")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card (skips without one)"
+    )
