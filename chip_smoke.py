@@ -10,15 +10,22 @@ no result line):
    library builds beside it, in parallel).
 2. Kernels against their plain PyTorch version on the card, at the
    main path's (LA, W) classes: exact int32 equality of each kernel's
-   output and of the fused (B, 16 + LA) result; times, Gcells/s and the
-   least time the card could take (the bound).
-3. The golden slice (tests/golden/mode0_stage_hashes.json's input) run
-   through the port's Assembler on the card and on the CPU: equal stage
-   hashes, equal to the pinned values.
-4. The slice at a real size on the card: a 5 Mb random genome, ONT-like
-   reads at 25x, Nanopore-May2022 verbatim. The launch counts are reset
-   just before the six stages and read just after; 256 kept pairs are
-   re-aligned with the plain version on the card and must agree.
+   output and of the fused (B, 16 + LA) result, banded_fwd_waves at
+   waves 2 and 4 wherever W <= 4096; times, Gcells/s and the least time
+   the card could take (the bound).
+3. The golden input (tests/golden/mode0_stage_hashes.json's) through the
+   whole assemble command (shasta_tpu_torch.__main__.main) on the card,
+   on the card with SHASTA_TORCH_WAVES=2, and on the CPU: all eight
+   stage hashes equal the pinned values, the summary's counts equal
+   tests/golden/mode0_metrics.json, and the FASTA and GFA files are
+   byte-equal across the three runs.
+4. Mode 0 end to end at a real size on the card (run_assembly): a 5 Mb
+   random genome, ONT-like reads at 25x, Nanopore-May2022 verbatim. The
+   launch counts are reset just before the run and read just after; 256
+   kept pairs are re-aligned with the plain version on the card and must
+   agree. Then computeAlignments runs again on the run's own Markers and
+   AlignmentCandidates with SHASTA_TORCH_WAVES=2 (the waves kernel's
+   main path) and must give the same Alignments hash.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -26,7 +33,9 @@ The line before the last is {"kernels": [...]}; the last line is
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
+import io
 import json
 import os
 import subprocess
@@ -41,7 +50,26 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
 GOLDEN = os.path.join(ROOT, "tests", "golden", "mode0_stage_hashes.json")
-STAGES = ["Reads", "Kmers", "Markers", "AlignmentCandidates", "Alignments"]
+GOLDEN_METRICS = os.path.join(ROOT, "tests", "golden", "mode0_metrics.json")
+STAGES = [
+    "Reads", "Kmers", "Markers", "AlignmentCandidates", "Alignments",
+    "ReadGraph", "MarkerGraph", "AssemblyGraph",
+]
+OUTPUTS = ["Assembly.fasta", "Assembly.gfa", "Assembly-BothStrands.gfa"]
+# tests/test_reference_parity.py:MODE0_FILE_FAMILY and GOLDEN_KEYS.
+MODE0_FILE_FAMILY = [
+    "Assembly.fasta", "Assembly.gfa", "Assembly-BothStrands.gfa",
+    "AssemblySummary.html", "AssemblySummary.json", "index.html",
+    "shasta.conf", "performance.log", "stdout.log", "ReadLengthHistogram.csv",
+]
+GOLDEN_KEYS = [
+    "readCount", "rawBaseCount", "rleBaseCount", "markerCount",
+    "alignmentCandidateCount", "alignmentCount", "chimericReadCount",
+    "palindromicReadCount", "markerGraphVertexCount", "markerGraphEdgeCount",
+    "assembledSegmentCount", "totalAssembledSegmentLength",
+    "longestAssembledSegmentLength", "assembledSegmentN50",
+]
+WAVES = (2, 4)
 SCORES = dict(match=6, mismatch=-1, gap=-1)
 # (LA = LB, W, pairs): phase 1's class, the phase-2 classes (4096 x 128
 # takes the most kernel time on the real-size run), a wide band, the
@@ -167,7 +195,7 @@ def class_bound(name, LA, W, B, work, sm_clock_mhz):
     rows (one dirs word read per row, the (B, LA) matches written)."""
     from shasta_tpu_torch.ops import align_kernel as K
 
-    if name == "banded_fwd":
+    if name.startswith("banded_fwd"):
         return bound_ms(
             work * K.FWD_INT_OPS_PER_CELL, 4 * B * 2 * LA + 4 * 5 * B + work // 4,
             sm_clock_mhz,
@@ -223,9 +251,35 @@ def phase_kernels(sm_clock_mhz):
         if n_matched == 0:
             raise AssertionError(f"no matches at LA={LA} W={W}: a vacuous check")
 
+        # banded_fwd_waves (W <= 4096) against the same plain forward,
+        # and the fused output with the waves kernel selected.
+        waves_err = 0
+        for w in WAVES if W <= K.WAVES_MAX_W else ():
+            wd, wb, wbi, wbd = K.banded_fwd_waves(a, a_len, b, b_len, bm, waves=w, **kw)
+            wf = K.banded_align_pairs(*dev, waves=w, **kw)
+            torch.cuda.synchronize()
+            werr = max(
+                int((wb - pbest).abs().max()), int((wbi - pbi).abs().max()),
+                int((wbd - pbd).abs().max()),
+                int(((wd != pdirs) & words[:, :, None]).sum()),
+                int((wf - pfused).abs().max()),
+            )
+            if werr:
+                raise AssertionError(
+                    f"banded_fwd_waves (waves {w}) != plain at LA={LA} W={W}: {werr}"
+                )
+            waves_err = max(waves_err, werr)
+            del wd, wf
+
         reps = 20 if LA * W <= 1 << 20 else 5
         fwd_ms = cuda_ms(lambda: K.banded_fwd(a, a_len, b, b_len, bm, **kw), reps)
         tb_ms = cuda_ms(lambda: K.banded_tb(dirs, bi, bd, bm, LA=LA, W=W), reps)
+        waves_ms = {
+            w: cuda_ms(
+                lambda: K.banded_fwd_waves(a, a_len, b, b_len, bm, waves=w, **kw), reps
+            )
+            for w in (WAVES if W <= K.WAVES_MAX_W else ())
+        }
 
         rows = int(a_len.clamp(max=LA).sum())
         cells = rows * W
@@ -253,6 +307,7 @@ def phase_kernels(sm_clock_mhz):
             "tb_bound_ms": tb_bound, "tb_bound_by": tb_by,
             "tb_ops_ms": tb_ops_ms, "tb_bytes_ms": tb_bytes_ms,
             "gcells_per_s": gcells, "max_abs_err": max(fwd_err, tb_err, fused_err),
+            "waves_ms": waves_ms, "waves_max_abs_err": waves_err,
         }
         log(
             f"kernel LA={LA} W={W} B={B}: equal (matches {n_matched}); "
@@ -264,8 +319,43 @@ def phase_kernels(sm_clock_mhz):
             f"{tb_bound:.4f} ms by {tb_by}, {tb_bound / tb_ms:.1%}); "
             f"{gcells:.2f} Gcells/s (B*LA*W / fwd+tb)"
         )
+        for w, ms in waves_ms.items():
+            log(
+                f"  banded_fwd_waves LA={LA} W={W} B={B} waves={w}: equal; {ms:.3f} ms "
+                f"(bound {fwd_bound:.4f} ms by {fwd_by}, {fwd_bound / ms:.1%}; "
+                f"banded_fwd {fwd_ms:.3f} ms, ratio {ms / fwd_ms:.2f})"
+            )
         del dirs, pdirs, fused, pfused, pmj, mj
     return results
+
+
+def phase_blocks_per_sm():
+    """Whether one W = 128 block per pair is bound by its own row latency
+    or by what the SM can issue: banded_fwd at 4096 x 128 with 1, 2 and 4
+    blocks per SM (B = 132, 264, 528), and banded_fwd_waves at the same
+    pairs. Equal times across B mean latency-bound blocks."""
+    from shasta_tpu_torch.ops import align_kernel as K
+
+    LA, W = 4096, 128
+    kw = dict(LA=LA, LB=LA, W=W, **SCORES)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {}
+    for per_sm in (1, 2, 4):
+        B = sms * per_sm
+        host = make_batch(LA + B, B, LA, W)
+        dev = [torch.from_numpy(x).cuda() for x in host]
+        a, a_len, b, b_len, bm = K.prepare_inputs(*dev, LA=LA, LB=LA, W=W)
+        row = {"B": B, "fwd_ms": cuda_ms(lambda: K.banded_fwd(a, a_len, b, b_len, bm, **kw), 5)}
+        for w in WAVES:
+            row[f"waves{w}_ms"] = cuda_ms(
+                lambda: K.banded_fwd_waves(a, a_len, b, b_len, bm, waves=w, **kw), 5
+            )
+        out[per_sm] = row
+        log(
+            f"blocks per SM LA={LA} W={W} B={B}: banded_fwd {row['fwd_ms']:.3f} ms, "
+            + ", ".join(f"waves {w} {row[f'waves{w}_ms']:.3f} ms" for w in WAVES)
+        )
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -273,24 +363,16 @@ def phase_kernels(sm_clock_mhz):
 # ---------------------------------------------------------------------------
 
 
-def small_config():
-    """tests/test_assembly_e2e.py:small_config, written out."""
-    from shasta_tpu_torch.pipeline.config import AssemblyConfig
-
-    cfg = AssemblyConfig()
-    cfg.reads.min_read_length = 500
-    cfg.kmers.k = 8
-    cfg.kmers.probability = 0.1
-    cfg.min_hash.hash_fraction = 0.05
-    cfg.min_hash.min_hash_iteration_count = 6
-    cfg.min_hash.max_bucket_size = 60
-    cfg.align.min_aligned_marker_count = 20
-    cfg.align.max_skip = 60
-    cfg.align.max_drift = 60
-    cfg.align.max_trim = 60
-    cfg.read_graph.max_alignment_count = 8
-    cfg.marker_graph.min_coverage = 3
-    return cfg
+# small_config (tests/test_assembly_e2e.py) as --Section.key overrides
+# of the configuration defaults (an empty conf file).
+SMALL_OVERRIDES = [
+    "--Reads.minReadLength", "500", "--Kmers.k", "8",
+    "--Kmers.probability", "0.1", "--MinHash.hashFraction", "0.05",
+    "--MinHash.minHashIterationCount", "6", "--MinHash.maxBucketSize", "60",
+    "--Align.minAlignedMarkerCount", "20", "--Align.maxSkip", "60",
+    "--Align.maxDrift", "60", "--Align.maxTrim", "60",
+    "--ReadGraph.maxAlignmentCount", "8", "--MarkerGraph.minCoverage", "3",
+]
 
 
 def stage_hashes(run_dir):
@@ -312,55 +394,125 @@ def stage_hashes(run_dir):
     return out
 
 
-def run_six(asm, fasta, times=None):
-    steps = [
-        ("addReads", lambda: asm.add_reads([fasta])),
-        ("selectKmers", asm.select_kmers),
-        ("findMarkers", asm.find_markers),
-        ("flagPalindromicReads", asm.flag_palindromic_reads),
-        ("findAlignmentCandidates", asm.find_alignment_candidates),
-        ("computeAlignments", asm.compute_alignments),
-    ]
-    for name, fn in steps:
-        t0 = time.perf_counter()
-        fn()
-        if asm.device.type == "cuda":
-            torch.cuda.synchronize()
-        if times is not None:
-            times[name] = time.perf_counter() - t0
+def reset_launches():
+    from shasta_tpu_torch.ops import align_kernel as K
+
+    for k in K.LAUNCHES:
+        K.LAUNCHES[k] = 0
+
+
+@contextlib.contextmanager
+def waves_env(value):
+    """SHASTA_TORCH_WAVES set for the duration (None: unset)."""
+    old = os.environ.pop("SHASTA_TORCH_WAVES", None)
+    if value is not None:
+        os.environ["SHASTA_TORCH_WAVES"] = value
+    try:
+        yield
+    finally:
+        os.environ.pop("SHASTA_TORCH_WAVES", None)
+        if old is not None:
+            os.environ["SHASTA_TORCH_WAVES"] = old
 
 
 def phase_golden(work):
-    from shasta_tpu_torch.pipeline.assemble import Assembler
+    from shasta_tpu_torch.__main__ import main as cli
+    from shasta_tpu_torch.ops import align_kernel as K
     from shasta_tpu_torch.utils import synth
 
     genome = synth.random_genome(25000, seed=4242)
     reads = synth.sample_reads(genome, 130, 3000, seed=4243, both_strands=True)
     fasta = os.path.join(work, "golden.fasta")
     synth.write_fasta(fasta, reads)
+    conf = os.path.join(work, "defaults.conf")
+    open(conf, "w").close()
     with open(GOLDEN) as f:
         pinned = json.load(f)
-    got = {}
-    for device in ("cuda", "cpu"):
-        run_dir = os.path.join(work, f"golden-{device}")
+    with open(GOLDEN_METRICS) as f:
+        metrics = json.load(f)
+    outputs = {}
+    for label, device, waves in (
+        ("cuda", "cuda", None), ("cuda-waves2", "cuda", "2"), ("cpu", "cpu", None)
+    ):
+        run_dir = os.path.join(work, f"golden-{label}")
+        reset_launches()
         t0 = time.perf_counter()
-        run_six(Assembler(run_dir, small_config(), device=device), fasta)
-        got[device] = stage_hashes(run_dir)
-        log(f"golden slice on {device}: {time.perf_counter() - t0:.2f}s")
-    for stage in STAGES:
-        if not (got["cuda"][stage] == got["cpu"][stage] == pinned[stage]):
-            raise AssertionError(
-                f"golden {stage}: cuda {got['cuda'][stage][:12]} cpu "
-                f"{got['cpu'][stage][:12]} pinned {pinned[stage][:12]}"
-            )
-    log("golden slice: Reads, Kmers, Markers, AlignmentCandidates, Alignments "
-        "hashes equal on card, CPU and pinned values")
+        with waves_env(waves), contextlib.redirect_stdout(io.StringIO()):
+            rc = cli([
+                "--command", "assemble", "--config", conf, "--input", fasta,
+                "--assemblyDirectory", run_dir, "--device", device,
+                *SMALL_OVERRIDES,
+            ])
+        launches = dict(K.LAUNCHES)
+        if rc != 0:
+            raise AssertionError(f"golden assemble ({label}) returned {rc}")
+        hashes = stage_hashes(run_dir)
+        bad = [s for s in STAGES if hashes.get(s) != pinned[s]]
+        if bad:
+            raise AssertionError(f"golden ({label}): stage hashes differ: {bad}")
+        with open(os.path.join(run_dir, "AssemblySummary.json")) as f:
+            summary = json.load(f)
+        got = {k: summary[k] for k in GOLDEN_KEYS}
+        if got != metrics:
+            raise AssertionError(f"golden ({label}): metrics {got} != {metrics}")
+        want_waves = label == "cuda-waves2"
+        if (launches["banded_fwd_waves"] > 0) != want_waves:
+            raise AssertionError(f"golden ({label}): launches {launches}")
+        if device == "cuda" and launches["banded_tb"] == 0:
+            raise AssertionError(f"golden ({label}): no kernel launched: {launches}")
+        outputs[label] = {}
+        for name in OUTPUTS:
+            with open(os.path.join(run_dir, name), "rb") as f:
+                outputs[label][name] = f.read()
+        log(
+            f"golden assemble --device {device}"
+            f"{' SHASTA_TORCH_WAVES=' + waves if waves else ''}: "
+            f"{time.perf_counter() - t0:.2f}s, launches {launches}"
+        )
+    if not outputs["cuda"] == outputs["cuda-waves2"] == outputs["cpu"]:
+        raise AssertionError("golden: FASTA/GFA files differ across the three runs")
+    log(
+        "golden: all eight stage hashes equal the pinned values and the summary "
+        "equals mode0_metrics.json in the three runs; Assembly.fasta, "
+        "Assembly.gfa and Assembly-BothStrands.gfa byte-equal across them"
+    )
+
+
+def kernel_classes(trace, sm_clock_mhz, label):
+    """Per (kernel, LA, W) launches, pairs, device ms, processed work and
+    bound of one traced run; prints one line per class."""
+    by_shape = {}
+    for name, LA, W, B, rows, start, end in trace:
+        e = by_shape.setdefault((name, LA, W), [0, 0, 0.0, 0, 0])
+        e[0] += 1
+        e[1] += B
+        e[2] += start.elapsed_time(end)
+        e[3] += int(rows.clamp(max=LA).sum()) * (W if name.startswith("banded_fwd") else 1)
+        e[4] += B * LA * W
+    shapes = []
+    for (name, LA, W), (n, B, ms, work, nominal) in sorted(by_shape.items()):
+        bound, by, _ops_ms, _bytes_ms = class_bound(name, LA, W, B, work, sm_clock_mhz)
+        shapes.append({
+            "kernel": name, "LA": LA, "W": W, "launches": n, "pairs": B,
+            "device_ms": ms, "work": work, "nominal_cells": nominal,
+            "bound_ms": bound, "bound_by": by,
+        })
+        log(
+            f"  [{label}] {name} LA={LA} W={W}: {n} launches, {B} pairs, {ms:.2f} ms "
+            f"(bound {bound:.4f} ms by {by}, {bound / ms:.1%})"
+        )
+    return shapes
 
 
 def phase_real_size(work, sm_clock_mhz):
+    from shasta_tpu_torch.data.kmers import KmerTable
+    from shasta_tpu_torch.data.markers import MarkerStore
+    from shasta_tpu_torch.data.reads import ReadStore
+    from shasta_tpu_torch.data.store import RunStore
     from shasta_tpu_torch.ops import align as AL
     from shasta_tpu_torch.ops import align_kernel as K
-    from shasta_tpu_torch.pipeline.assemble import Assembler
+    from shasta_tpu_torch.ops.lowhash import CandidatePairs
+    from shasta_tpu_torch.pipeline.assemble import Assembler, run_assembly
     from shasta_tpu_torch.pipeline.config import AssemblyConfig
     from shasta_tpu_torch.pipeline.configurations import get_configuration
     from shasta_tpu_torch.utils import synth
@@ -378,76 +530,80 @@ def phase_real_size(work, sm_clock_mhz):
     )
     del reads
     cfg = AssemblyConfig.from_conf_text(get_configuration("Nanopore-May2022"))
-    asm = Assembler(os.path.join(work, "ont5mb"), cfg, device="cuda")
+    run_dir = os.path.join(work, "ont5mb")
 
     # The main path: counts to 0 just before, read just after.
-    for k in K.LAUNCHES:
-        K.LAUNCHES[k] = 0
+    reset_launches()
     K.TRACE = []
     torch.cuda.reset_peak_memory_stats()
-    times = {}
-    run_six(asm, fasta, times)
+    t0 = time.perf_counter()
+    with waves_env(None), contextlib.redirect_stdout(io.StringIO()):
+        summary = run_assembly([fasta], run_dir, cfg, device="cuda")
+    wall = time.perf_counter() - t0
     launches = dict(K.LAUNCHES)
     trace, K.TRACE = K.TRACE, None
     peak = torch.cuda.max_memory_allocated()
+    times = summary["stageSeconds"]
 
-    store = asm.alignments
-    if not store.check_strictly_increasing():
-        raise AssertionError("alignment ordinals not strictly increasing")
-    by_shape, bounds = {}, {}
-    for name, LA, W, B, rows, start, end in trace:
-        e = by_shape.setdefault((name, LA, W), [0, 0, 0.0, 0, 0])
-        e[0] += 1
-        e[1] += B
-        e[2] += start.elapsed_time(end)
-        e[3] += int(rows.clamp(max=LA).sum()) * (W if name == "banded_fwd" else 1)
-        e[4] += B * LA * W
-    fwd_ms = sum(v[2] for (n, _, _), v in by_shape.items() if n == "banded_fwd")
-    tb_ms = sum(v[2] for (n, _, _), v in by_shape.items() if n == "banded_tb")
-    nominal = sum(v[4] for (n, _, _), v in by_shape.items() if n == "banded_fwd")
-    real_cells = sum(v[3] for (n, _, _), v in by_shape.items() if n == "banded_fwd")
-    log("real size stage seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in times.items()))
+    missing = [f for f in MODE0_FILE_FAMILY if not os.path.exists(os.path.join(run_dir, f))]
+    if missing:
+        raise AssertionError(f"real size: files missing from the run directory: {missing}")
+    if summary["assembledSegmentCount"] < 1:
+        raise AssertionError("real size: no segment assembled")
+    log(f"real size run_assembly: {wall:.2f}s wall; stage seconds: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in times.items()))
     log(
-        f"real size: reads {asm.reads.read_count}, candidates {asm.candidates.count}, "
-        f"alignments {store.count}, palindromic {int(asm.reads.is_palindromic.sum())}, "
-        f"max markers/oriented read {int(np.diff(asm.markers.offsets).max())}"
+        f"real size: reads {summary['readCount']}, candidates "
+        f"{summary['alignmentCandidateCount']}, alignments {summary['alignmentCount']}, "
+        f"palindromic {summary['palindromicReadCount']}, chimeric "
+        f"{summary['chimericReadCount']}; markerGraphMinCoverageUsed "
+        f"{summary['markerGraphMinCoverageUsed']}, marker graph vertices "
+        f"{summary['markerGraphVertexCount']}, edges {summary['markerGraphEdgeCount']}; "
+        f"segments {summary['assembledSegmentCount']}, total length "
+        f"{summary['totalAssembledSegmentLength']}, longest "
+        f"{summary['longestAssembledSegmentLength']}, N50 {summary['assembledSegmentN50']}"
     )
-    log(
-        f"real size launches: {launches}; peak device memory "
-        f"{peak / 2**30:.2f} GiB; kernel device time fwd {fwd_ms:.1f} ms, "
-        f"tb {tb_ms:.1f} ms; card-side {nominal / ((fwd_ms + tb_ms) * 1e-3) / 1e9:.2f} "
-        f"Gcells/s (B*LA*W), {real_cells / (fwd_ms * 1e-3) / 1e9:.2f} Gcells/s "
-        f"of processed rows in banded_fwd"
-    )
+    shapes = kernel_classes(trace, sm_clock_mhz, "main path")
+    fwd_ms = sum(c["device_ms"] for c in shapes if c["kernel"] == "banded_fwd")
+    tb_ms = sum(c["device_ms"] for c in shapes if c["kernel"] == "banded_tb")
+    nominal = sum(c["nominal_cells"] for c in shapes if c["kernel"] == "banded_fwd")
+    real_cells = sum(c["work"] for c in shapes if c["kernel"] == "banded_fwd")
     dp_wall = times["flagPalindromicReads"] + times["computeAlignments"]
     log(
-        f"real size: the two kernels are busy {(fwd_ms + tb_ms) / 1e3 / dp_wall:.1%} "
-        f"of the wall time of the two stages that launch them ({dp_wall:.2f}s)"
+        f"real size launches: {launches}; peak device memory {peak / 2**30:.2f} GiB; "
+        f"peak RSS {summary['peakMemoryUsageKB'] / 2**20:.2f} GiB (this process); "
+        f"kernel device time fwd {fwd_ms:.1f} ms, tb {tb_ms:.1f} ms; card-side "
+        f"{nominal / ((fwd_ms + tb_ms) * 1e-3) / 1e9:.2f} Gcells/s (B*LA*W), "
+        f"{real_cells / (fwd_ms * 1e-3) / 1e9:.2f} Gcells/s of processed rows in banded_fwd; "
+        f"the two kernels are busy {(fwd_ms + tb_ms) / 1e3 / dp_wall:.1%} of the "
+        f"wall time of the two stages that launch them ({dp_wall:.2f}s)"
     )
-    for key, (n, B, ms, work, _nom) in sorted(by_shape.items()):
-        name, LA, W = key
-        bound, by, _ops_ms, _bytes_ms = class_bound(name, LA, W, B, work, sm_clock_mhz)
-        bounds[key] = (bound, by)
-        log(
-            f"  {name} LA={LA} W={W}: {n} launches, {B} pairs, {ms:.2f} ms "
-            f"(bound {bound:.4f} ms by {by}, {bound / ms:.1%})"
-        )
     if launches["banded_fwd"] == 0 or launches["banded_tb"] == 0:
         raise AssertionError(f"a kernel never launched on the main path: {launches}")
-    if not any(LA >= 8192 for (_n, LA, _w) in by_shape):
+    if launches["banded_fwd_waves"] != 0:
+        raise AssertionError(f"the waves kernel ran at SHASTA_TORCH_WAVES unset: {launches}")
+    if not any(c["LA"] >= 8192 for c in shapes):
         raise AssertionError("no launch at LA >= 8192 on the main path")
+
+    # The run's own stage data, reloaded from its store.
+    store = RunStore(run_dir, create=False)
+    markers = MarkerStore.from_arrays(store.load_stage("Markers"))
+    kmer_table = KmerTable.from_arrays(store.load_stage("Kmers"))
+    aligned = AL.AlignmentStore.from_arrays(store.load_stage("Alignments"))
+    if not aligned.check_strictly_increasing():
+        raise AssertionError("alignment ordinals not strictly increasing")
 
     # Spot check: 256 seeded kept pairs plus the longest, re-aligned with
     # the plain version on the card; identical stores.
     rng = np.random.default_rng(7)
-    longest = int(np.argmax(store.n_markers0 + store.n_markers1))
-    pick = np.unique(
-        np.concatenate([rng.choice(store.count, min(255, store.count), replace=False), [longest]])
-    )
+    longest = int(np.argmax(aligned.n_markers0 + aligned.n_markers1))
+    pick = np.unique(np.concatenate([
+        rng.choice(aligned.count, min(255, aligned.count), replace=False), [longest]
+    ]))
     # computeAlignments builds the same table (a hash of every one of the
     # 4^k k-mers) on the host before the alignment engine starts.
     ts = time.perf_counter()
-    ds_table = asm.kmer_table.downsampling_hash_table()
+    ds_table = kmer_table.downsampling_hash_table()
     log(
         f"real size: downsampling hash table ({ds_table.shape[0]} k-mers) "
         f"built on the host in {time.perf_counter() - ts:.2f}s"
@@ -457,36 +613,61 @@ def phase_real_size(work, sm_clock_mhz):
     K.banded_align_pairs = K.banded_align_pairs_plain
     try:
         sub = AL.align_candidates(
-            asm.markers, store.read_id0[pick], store.read_id1[pick],
-            store.same_strand[pick], _align_params(cfg), ds_table,
-            device="cuda",
+            markers, aligned.read_id0[pick], aligned.read_id1[pick],
+            aligned.same_strand[pick], _align_params(cfg), ds_table, device="cuda",
         )
     finally:
         K.banded_align_pairs = real
     if sub.count != pick.shape[0]:
         raise AssertionError(f"spot check kept {sub.count} of {pick.shape[0]}")
     for t, i in enumerate(pick):
-        a0, a1 = store.ordinals(int(i))
+        a0, a1 = aligned.ordinals(int(i))
         b0, b1 = sub.ordinals(t)
         if not (np.array_equal(a0, b0) and np.array_equal(a1, b1)):
             raise AssertionError(f"spot check: pair {i} differs from the plain version")
     log(
-        f"spot check: {pick.shape[0]} kept pairs (longest {int(store.n_markers0[longest])}"
-        f"+{int(store.n_markers1[longest])} markers) identical under the plain "
+        f"spot check: {pick.shape[0]} kept pairs (longest {int(aligned.n_markers0[longest])}"
+        f"+{int(aligned.n_markers1[longest])} markers) identical under the plain "
         f"version on the card ({time.perf_counter() - ts:.1f}s)"
     )
+    del ds_table, sub
+
+    # computeAlignments again on the run's Markers and AlignmentCandidates
+    # with the waves kernel: counts to 0 just before, read just after.
+    waves_dir = os.path.join(work, "ont5mb-waves2")
+    asm = Assembler(waves_dir, cfg, device="cuda")
+    asm.reads = ReadStore.from_arrays(store.load_stage("Reads"))
+    asm.kmer_table = kmer_table
+    asm.markers = markers
+    asm.candidates = CandidatePairs.from_arrays(store.load_stage("AlignmentCandidates"))
+    reset_launches()
+    K.TRACE = []
+    t0 = time.perf_counter()
+    with waves_env("2"):
+        asm.compute_alignments()
+    waves_s = time.perf_counter() - t0
+    waves_launches = dict(K.LAUNCHES)
+    waves_trace, K.TRACE = K.TRACE, None
+    log(
+        f"real size computeAlignments with SHASTA_TORCH_WAVES=2: {waves_s:.2f}s "
+        f"(default run {times['computeAlignments']:.2f}s), launches {waves_launches}"
+    )
+    waves_shapes = kernel_classes(waves_trace, sm_clock_mhz, "waves 2")
+    if waves_launches["banded_fwd_waves"] == 0:
+        raise AssertionError(f"banded_fwd_waves never launched: {waves_launches}")
+    h1 = stage_hashes(run_dir)["Alignments"]
+    h2 = stage_hashes(waves_dir)["Alignments"]
+    if h1 != h2:
+        raise AssertionError(f"Alignments hash differs under waves 2: {h1[:12]} {h2[:12]}")
+    log(f"real size: Alignments hash {h1[:16]} equal with SHASTA_TORCH_WAVES=2")
     return {
-        "launches": launches, "times": times, "peak_bytes": peak,
-        "reads": int(asm.reads.read_count), "candidates": int(asm.candidates.count),
-        "alignments": int(store.count),
-        "shapes": [
-            {"kernel": n, "LA": LA, "W": W, "launches": v[0], "pairs": v[1],
-             "device_ms": v[2], "work": v[3], "nominal_cells": v[4],
-             "bound_ms": bounds[(n, LA, W)][0], "bound_by": bounds[(n, LA, W)][1]}
-            for (n, LA, W), v in sorted(by_shape.items())
-        ],
-        "fwd_ms": fwd_ms, "tb_ms": tb_ms, "nominal_cells": nominal,
+        "launches": launches, "times": times, "wall_s": wall, "peak_bytes": peak,
+        "peak_rss_kb": summary["peakMemoryUsageKB"],
+        "summary": {k: v for k, v in summary.items() if not isinstance(v, (dict, list))},
+        "shapes": shapes, "fwd_ms": fwd_ms, "tb_ms": tb_ms, "nominal_cells": nominal,
         "processed_cells": real_cells,
+        "waves": {"launches": waves_launches, "compute_alignments_s": waves_s,
+                  "shapes": waves_shapes},
     }
 
 
@@ -512,6 +693,7 @@ def main() -> int:
     t_start = time.perf_counter()
     sm_clock = phase_device_and_build()
     kernels = phase_kernels(sm_clock)
+    blocks = phase_blocks_per_sm()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
         phase_golden(work)
         real = phase_real_size(work, sm_clock)
@@ -524,6 +706,7 @@ def main() -> int:
     }
     rep = max(kernels, key=lambda k: (fwd_ms.get(k, 0.0), k[0] * k[1]))
     r = kernels[rep]
+    shape = {"LA": rep[0], "W": rep[1], "B": r["B"]}
     src = "shasta_tpu_torch/csrc/banded_align.cu"
     line = {"kernels": [
         {"name": "banded_fwd", "route": "cuda", "source": src,
@@ -531,20 +714,28 @@ def main() -> int:
          "launches": real["launches"]["banded_fwd"], "max_abs_err": r["max_abs_err"],
          "ms": r["fwd_ms"], "plain_ms": r["fwd_plain_ms"],
          "bound_ms": r["fwd_bound_ms"], "bound_by": r["fwd_bound_by"],
-         "library_ms": None, "shape": {"LA": rep[0], "W": rep[1], "B": r["B"]}},
+         "library_ms": None, "shape": shape},
         {"name": "banded_tb", "route": "cuda", "source": src,
          "replaces": "shasta_tpu/ops/align_pallas.py:296,714",
          "launches": real["launches"]["banded_tb"], "max_abs_err": r["max_abs_err"],
          "ms": r["tb_ms"], "plain_ms": r["tb_plain_ms"],
          "bound_ms": r["tb_bound_ms"], "bound_by": r["tb_bound_by"],
-         "library_ms": None, "shape": {"LA": rep[0], "W": rep[1], "B": r["B"]}},
+         "library_ms": None, "shape": shape},
+        {"name": "banded_fwd_waves", "route": "cuda", "source": src,
+         "replaces": "shasta_tpu/ops/align_pallas.py:340",
+         "launches": real["waves"]["launches"]["banded_fwd_waves"],
+         "max_abs_err": max(k["waves_max_abs_err"] for k in kernels.values()),
+         "ms": r["waves_ms"][2], "plain_ms": r["fwd_plain_ms"],
+         "bound_ms": r["fwd_bound_ms"], "bound_by": r["fwd_bound_by"],
+         "library_ms": None, "shape": dict(shape, waves=2)},
     ]}
     card = smi("name,power.limit")
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(
             {"card": card, "sm_clock_mhz": sm_clock,
-             "kernels": [dict(v) for v in kernels.values()], "real_size": real,
+             "kernels": [dict(v) for v in kernels.values()],
+             "blocks_per_sm": blocks, "real_size": real,
              "seconds": time.perf_counter() - t_start},
             f, indent=1,
         )

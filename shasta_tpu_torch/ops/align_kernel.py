@@ -1,13 +1,17 @@
 """Batched banded marker alignment: CUDA kernels and their plain version.
 
-Counterpart of ``shasta_tpu/ops/align_pallas.py``. Two hand-written CUDA
-kernels (``csrc/banded_align.cu``) replace the three Pallas kernels on
-the main path:
+Counterpart of ``shasta_tpu/ops/align_pallas.py``. Three hand-written
+CUDA kernels (``csrc/banded_align.cu``) replace its four Pallas kernels:
 
 - ``banded_fwd`` replaces ``_kernel``'s forward half
   (align_pallas.py:156) and ``_fwd_chunked_kernel`` (:581);
-- ``banded_tb`` replaces ``_kernel``'s traceback half (:296-337) and
-  ``_tb_chunked_kernel`` (:714).
+- ``banded_tb`` replaces ``_kernel``'s traceback half (:296-337),
+  ``_tb_chunked_kernel`` (:714) and ``_kernel_waves``'s traceback half
+  (:496-536), which walks each pair as ``_kernel`` does;
+- ``banded_fwd_waves`` replaces ``_kernel_waves``'s forward half (:340):
+  2 or 4 pairs per thread block, their scan steps interleaved. It runs
+  when ``SHASTA_TORCH_WAVES`` (or the ``waves`` argument) is 2 or 4; see
+  :func:`banded_align_pairs` for the rule.
 
 The TPU splits monolithic and chunked regimes because of its VMEM
 budget; the card has no such budget, so one kernel pair serves every
@@ -37,6 +41,7 @@ the CPU; on CUDA tensors it launches the kernels or raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 import shutil
 import subprocess
@@ -53,7 +58,7 @@ D_MATCH, D_MISMATCH, UP, LEFT = 0, 1, 2, 3
 
 # Launches of each CUDA kernel (plain integers; chip_smoke.py resets and
 # reads them to show the main path ran on the kernels).
-LAUNCHES = {"banded_fwd": 0, "banded_tb": 0}
+LAUNCHES = {"banded_fwd": 0, "banded_tb": 0, "banded_fwd_waves": 0}
 
 # Optional launch trace: when a caller sets this to a list, every CUDA
 # launch appends (name, LA, W, B, a_len, start, end) with CUDA events
@@ -80,6 +85,8 @@ FWD_INT_OPS_PER_CELL_ISSUED = 37
 _DIRS_BYTES = 1 << 30
 # The widest band the forward kernel takes (banded_fwd_launch's limit).
 MAX_W = 16384
+# The widest band banded_fwd_waves takes (its K = 4 instantiation).
+WAVES_MAX_W = 4096
 
 _CSRC = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
@@ -147,6 +154,11 @@ def build_kernels(force: bool = False) -> float:
             lib.banded_fwd_launch.restype = ci
             lib.banded_tb_launch.argtypes = [vp, vp, vp, vp, ci, ci, ci, vp, vp]
             lib.banded_tb_launch.restype = ci
+            lib.banded_fwd_waves_launch.argtypes = [
+                vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci,
+                vp, vp, vp, vp, vp,
+            ]
+            lib.banded_fwd_waves_launch.restype = ci
             _lib = lib
         return time.perf_counter() - t0
 
@@ -207,6 +219,39 @@ def banded_fwd(a, a_len, b, b_len, band_min, *, LA, LB, W, match, mismatch, gap)
         raise ValueError(
             f"banded_fwd takes W <= {MAX_W} (two rows in shared memory); got {W}"
         )
+    return _launch_fwd(
+        "banded_fwd", a, a_len, b, b_len, band_min, LA, LB, W, match, mismatch, gap
+    )
+
+
+def banded_fwd_waves(
+    a, a_len, b, b_len, band_min, *, LA, LB, W, match, mismatch, gap, waves
+):
+    """:func:`banded_fwd` with ``waves`` (2 or 4) pairs per thread block
+    and W <= WAVES_MAX_W: the same outputs, bit for bit. A batch that is
+    not a multiple of ``waves`` leaves the last block's extra slots
+    empty (the kernel guards them)."""
+    if a.device.type != "cuda":
+        return banded_fwd_plain(
+            a, a_len, b, b_len, band_min,
+            LA=LA, LB=LB, W=W, match=match, mismatch=mismatch, gap=gap,
+        )
+    _check_cuda(a, a_len, b, b_len, band_min)
+    if W > WAVES_MAX_W or waves not in (2, 4):
+        raise ValueError(
+            f"banded_fwd_waves takes W <= {WAVES_MAX_W} and waves 2 or 4; "
+            f"got W={W} waves={waves}"
+        )
+    return _launch_fwd(
+        "banded_fwd_waves", a, a_len, b, b_len, band_min, LA, LB, W,
+        match, mismatch, gap, waves,
+    )
+
+
+def _launch_fwd(name, a, a_len, b, b_len, band_min, LA, LB, W, match, mismatch,
+                gap, *extra):
+    """Allocate the forward outputs and launch kernel ``name`` through
+    its C launcher, which takes ``extra`` after the scores."""
     B = a.shape[0]
     dev = a.device
     dirs = torch.empty((B, n_words(LA), W), dtype=torch.int32, device=dev)
@@ -218,18 +263,18 @@ def banded_fwd(a, a_len, b, b_len, band_min, *, LA, LB, W, match, mismatch, gap)
     lib = _load()
     stream = torch.cuda.current_stream(dev).cuda_stream
     ev = _trace_start()
-    rc = lib.banded_fwd_launch(
+    rc = getattr(lib, f"{name}_launch")(
         a.data_ptr(), b.data_ptr(), a_len.data_ptr(), b_len.data_ptr(),
-        band_min.data_ptr(), B, LA, LB, W, match, mismatch, gap,
+        band_min.data_ptr(), B, LA, LB, W, match, mismatch, gap, *extra,
         dirs.data_ptr(), best.data_ptr(), bi.data_ptr(), bd.data_ptr(), stream,
     )
     if rc != 0:
         raise RuntimeError(
-            f"banded_fwd launch failed (cudaError {rc}) at "
-            f"B={B} LA={LA} LB={LB} W={W}"
+            f"{name} launch failed (cudaError {rc}) at "
+            f"B={B} LA={LA} LB={LB} W={W} {extra}"
         )
-    LAUNCHES["banded_fwd"] += 1
-    _trace_end(ev, "banded_fwd", LA, W, B, a_len)
+    LAUNCHES[name] += 1
+    _trace_end(ev, name, LA, W, B, a_len)
     return dirs, best, bi, bd
 
 
@@ -423,23 +468,46 @@ def dirs_chunk_pairs(LA: int, W: int) -> int:
     return max(1, _DIRS_BYTES // (n_words(LA) * W * 4))
 
 
+def resolve_waves(waves=None) -> int:
+    """Pairs per forward thread block: ``waves``, or when it is None the
+    ``SHASTA_TORCH_WAVES`` environment variable (default 1), read anew
+    on every call. Only 1, 2 and 4 are allowed."""
+    if waves is None:
+        waves = os.environ.get("SHASTA_TORCH_WAVES", "1")
+    if str(waves) not in ("1", "2", "4"):
+        raise ValueError(f"waves must be 1, 2 or 4; got {waves!r}")
+    return int(waves)
+
+
 def banded_align_pairs(
-    a, a_len, b, b_len, band_min, *, LA, LB, W, match, mismatch, gap
+    a, a_len, b, b_len, band_min, *, LA, LB, W, match, mismatch, gap, waves=None
 ) -> torch.Tensor:
     """Forward + traceback for a batch of pairs; (B, 16 + LA) int32.
 
     CPU tensors run the plain version; CUDA tensors run the kernels,
-    in launches of at most :func:`dirs_chunk_pairs` pairs each."""
+    in launches of at most :func:`dirs_chunk_pairs` pairs each.
+
+    ``waves`` (:func:`resolve_waves`; None reads ``SHASTA_TORCH_WAVES``)
+    picks the forward kernel on CUDA tensors: 1 runs ``banded_fwd``; 2
+    or 4 run ``banded_fwd_waves`` when W <= WAVES_MAX_W (4096), and
+    ``banded_fwd`` for a wider band, as ``_invoke`` (align_pallas.py:1159)
+    falls back to ``_kernel`` where its waves condition fails. The
+    output is the same either way."""
+    waves = resolve_waves(waves)
     a, a_len, b, b_len, band_min = prepare_inputs(
         a, a_len, b, b_len, band_min, LA=LA, LB=LB, W=W
     )
     B = a.shape[0]
     kw = dict(LA=LA, LB=LB, W=W, match=match, mismatch=mismatch, gap=gap)
+    if waves > 1 and W <= WAVES_MAX_W:
+        fwd = functools.partial(banded_fwd_waves, waves=waves)
+    else:
+        fwd = banded_fwd
     step = dirs_chunk_pairs(LA, W)
     mjs, bests = [], []
     for lo in range(0, B, step):
         hi = min(B, lo + step)
-        dirs, best, bi, bd = banded_fwd(
+        dirs, best, bi, bd = fwd(
             a[lo:hi], a_len[lo:hi], b[lo:hi], b_len[lo:hi], band_min[lo:hi], **kw
         )
         mjs.append(banded_tb(dirs, bi, bd, band_min[lo:hi], LA=LA, W=W))

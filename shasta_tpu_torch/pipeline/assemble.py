@@ -1,18 +1,28 @@
-"""The mode-0 assembly pipeline, stages addReads through computeAlignments.
+"""The end-to-end mode-0 assembly pipeline.
 
-Counterpart of ``shasta_tpu/pipeline/assemble.py`` (:75-489): the
-stage-by-stage ``Assembler`` API. Every stage persists its outputs to
-the run directory's stage store in the JAX package's ``Data/`` format,
-so a run directory written by either package can be reattached by the
-other (``cls.from_arrays(store.load_stage(name))`` for each stage).
-The stages after computeAlignments are not ported yet.
+Counterpart of ``shasta_tpu/pipeline/assemble.py``: the stage-by-stage
+``Assembler`` API and ``run_assembly`` (reference: srcMain/main.cpp:516-830
+and mode0Assembly at :845-1045), addReads through the GFA/FASTA output.
+Every stage persists its outputs to the run directory's stage store in
+the JAX package's ``Data/`` format, so a run directory written by either
+package can be reattached by the other
+(``cls.from_arrays(store.load_stage(name))`` for each stage).
+
+The alignment DP runs on the ``device`` (CUDA kernels, or their plain
+PyTorch version on the CPU); every other stage is host code (numpy and
+the native library), as in the JAX package. Not ported yet: alignment
+methods 0, 1 and 4 and iterative assembly (ROADMAP.md item 9), modes 2
+and 3 (items 10 and 11), the mesh (item 13); each raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import gc
+import json
 import os
 import sys
+import time
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -21,12 +31,56 @@ from shasta_tpu_torch.data.kmers import KmerTable, select_kmers_random
 from shasta_tpu_torch.data.markers import MarkerStore, find_markers
 from shasta_tpu_torch.data.reads import ReadStore, build_read_store
 from shasta_tpu_torch.data.store import RunStore
+from shasta_tpu_torch.graph import assembly_graph as AG
+from shasta_tpu_torch.graph import marker_graph as MG
+from shasta_tpu_torch.graph import read_graph as RG
 from shasta_tpu_torch.io import fasta as FIO
 from shasta_tpu_torch.ops import lowhash as LH
 from shasta_tpu_torch.ops.align import AlignParams, AlignmentStore, align_candidates
 from shasta_tpu_torch.ops.align_kernel import resolve_device
 from shasta_tpu_torch.pipeline.config import AssemblyConfig
 from shasta_tpu_torch.utils.perf import PerformanceLog, malloc_trim
+from shasta_tpu_torch.consensus.caller import get_consensus_caller
+
+
+def auto_min_coverage(
+    coverage_histogram: np.ndarray,
+    fallback: int = 5,
+    min_area_fraction: float = 0.08,
+    area_start_index: int = 2,
+) -> int:
+    """Pick MarkerGraph.minCoverage from the disjoint-sets coverage
+    histogram when the configured value is 0 (reference: PeakFinder
+    topographic prominence, src/PeakFinder.cpp, used at
+    src/AssemblerMarkerGraph.cpp:230-250); falls back to 5 like the
+    reference when no significant peak exists."""
+    from shasta_tpu_torch.utils.peakfinder import PeakFinderException, find_x_cutoff
+
+    h = np.asarray(coverage_histogram, dtype=np.float64)
+    try:
+        return max(
+            2,
+            find_x_cutoff(
+                h,
+                min_area_fraction=min_area_fraction,
+                area_start_index=area_start_index,
+            ),
+        )
+    except PeakFinderException:
+        return fallback
+
+
+def _not_ported(what: str, item: int, module: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported yet (ROADMAP.md, modules to port, item "
+        f"{item}: {module})"
+    )
+
+
+def _mode_not_ported(mode: int) -> NotImplementedError:
+    if mode == 2:
+        return _not_ported("Assembly.mode 2", 10, "graph/mode2.py")
+    return _not_ported(f"Assembly.mode {mode}", 11, "graph/mode3.py")
 
 
 class Assembler:
@@ -55,8 +109,93 @@ class Assembler:
         self.markers: Optional[MarkerStore] = None
         self.candidates: Optional[LH.CandidatePairs] = None
         self.alignments: Optional[AlignmentStore] = None
+        self.read_graph: Optional[RG.ReadGraph] = None
+        self.marker_graph: Optional[MG.MarkerGraph] = None
+        self.assembly_graph: Optional[AG.AssemblyGraph] = None
+        self.vertex_repeats: Optional[np.ndarray] = None
+        self.edge_consensus: Optional[AG.EdgeConsensus] = None
+        self.min_coverage_used: int = 0
+        # Actionable post-stage diagnoses (reference:
+        # scripts/GenerateFeedback.py run after an assembly); surfaced
+        # in the log as WARNINGs and in AssemblySummary.json.
         self.feedback: List[str] = []
         self.lowhash_stats: Dict = {}
+        self.log.memprobe = self._memory_inventory
+
+    _MEM_STORES = (
+        "reads", "markers", "candidates", "alignments", "read_graph",
+        "marker_graph", "assembly_graph", "vertex_repeats",
+        "edge_consensus",
+    )
+
+    def _memory_inventory(self) -> str:
+        """Array bytes held per pipeline store (SHASTA_TORCH_MEMPROF)."""
+        from shasta_tpu_torch.utils.perf import obj_nbytes
+
+        parts = []
+        for name in self._MEM_STORES:
+            nb = obj_nbytes(getattr(self, name, None))
+            if nb > (1 << 20):
+                parts.append((nb, f"{name}={nb / 2**20:.0f}MB"))
+        parts.sort(key=lambda x: -x[0])
+        return " ".join(p for _, p in parts)
+
+    def test(self) -> bool:
+        """Built-in self-test (reference: Assembler::test via
+        scripts/Test.py, src/Assembler.hpp:2429): quick in-memory
+        checks of the core invariants — union-find convergence versus
+        a sequential oracle, reverse-complement involution, compressed
+        alignment round-trip, and a tiny end-to-end strand-symmetric
+        marker graph."""
+        import numpy as np
+
+        rng = np.random.default_rng(0)
+
+        # Union-find stress vs a sequential DSU oracle.
+        n = 2000
+        u = rng.integers(0, n, 5000)
+        v = rng.integers(0, n, 5000)
+        label = MG.union_find_labels(n, u, v)
+        parent = list(range(n))
+
+        def find(x):
+            while parent[x] != x:
+                parent[x] = parent[parent[x]]
+                x = parent[x]
+            return x
+
+        for a, b in zip(u.tolist(), v.tolist()):
+            ra, rb = find(a), find(b)
+            if ra != rb:
+                parent[max(ra, rb)] = min(ra, rb)
+        oracle = np.array([find(x) for x in range(n)])
+        # Components must partition identically.
+        _, la = np.unique(label, return_inverse=True)
+        _, lb = np.unique(oracle, return_inverse=True)
+        assert np.array_equal(la, lb), "union-find mismatch"
+
+        # Reverse complement involution.
+        from shasta_tpu_torch.data.kmers import reverse_complement_kmers
+
+        for k in (4, 8, 12, 15):
+            ids = rng.integers(0, 1 << (2 * k), 10000).astype(np.uint32)
+            rc2 = reverse_complement_kmers(
+                reverse_complement_kmers(ids, k), k
+            )
+            assert np.array_equal(rc2, ids), f"rc involution failed at k={k}"
+
+        # Compressed alignment round-trip.
+        from shasta_tpu_torch.data.compress_alignment import (
+            compress_alignment,
+            decompress_alignment,
+        )
+
+        o1 = np.sort(rng.choice(5000, 800, replace=False)).astype(np.uint32)
+        o0 = (o1 + rng.integers(0, 50)).astype(np.uint32)
+        r0, r1 = decompress_alignment(compress_alignment(o0, o1))
+        assert np.array_equal(r0, o0) and np.array_equal(r1, o1)
+
+        return True
 
     # ----- stages -----
 
@@ -278,9 +417,9 @@ class Assembler:
         ca = self.config.align
         with self.log.stage("computeAlignments"):
             if ca.align_method in (0, 1, 4):
-                raise NotImplementedError(
-                    f"Align.alignMethod {ca.align_method} is not ported yet "
-                    "(ROADMAP.md, modules to port, item 9: ops/align_other.py)"
+                raise _not_ported(
+                    f"Align.alignMethod {ca.align_method}", 9,
+                    "ops/align_other.py",
                 )
             params = AlignParams(
                 match_score=ca.match_score,
@@ -317,3 +456,506 @@ class Assembler:
             self.store.save_stage("Alignments", self.alignments.arrays())
             gc.collect()
             malloc_trim()
+
+    def release_candidates(self) -> None:
+        """Drop the in-memory candidate pairs (persisted in the stage
+        store; ``alignmentCandidateCount`` survives for the summary)."""
+        if self.candidates is not None:
+            self.n_candidates = int(self.candidates.count)
+            self.candidates = None
+
+    def release_alignments(self) -> None:
+        """Drop the in-memory alignment store (persisted in the stage
+        store; the count survives for the summary)."""
+        if self.alignments is not None:
+            self.n_alignments = int(self.alignments.count)
+            self.alignments = None
+
+    def create_read_graph(self) -> None:
+        cr = self.config.read_graph
+        with self.log.stage("createReadGraph"):
+            if cr.creation_method == 2:
+                self.read_graph, _, criteria = RG.create_read_graph2(
+                    self.alignments,
+                    self.reads.read_count,
+                    max_alignment_count=cr.max_alignment_count,
+                    marker_count_percentile=cr.marker_count_percentile,
+                    aligned_fraction_percentile=cr.aligned_fraction_percentile,
+                    max_skip_percentile=cr.max_skip_percentile,
+                    max_drift_percentile=cr.max_drift_percentile,
+                    max_trim_percentile=cr.max_trim_percentile,
+                )
+                self.log.line(f"Adaptive alignment criteria: {criteria}")
+            else:
+                self.read_graph, _ = RG.create_read_graph(
+                    self.alignments,
+                    self.reads.read_count,
+                    max_alignment_count=cr.max_alignment_count,
+                )
+            self.store.save_stage("ReadGraph", self.read_graph.arrays())
+            # Alignment-quality feedback (reference:
+            # scripts/GenerateFeedback.py:82-91 — candidates were
+            # plentiful but too few passed the good-alignment bar).
+            good_per_read = self.alignments.count / max(1, self.reads.read_count)
+            isolated_frac = float(
+                (np.diff(self.read_graph.adj_offsets)[0::2] == 0).mean()
+            )
+            if self.lowhash_stats.get("candidatesPerRead", 99.0) >= 20.0 and (
+                good_per_read < 5.0 or isolated_frac > 0.5
+            ):
+                msg = (
+                    "Not enough good alignments: "
+                    f"{good_per_read:.1f} per read, isolated-read "
+                    f"fraction {isolated_frac:.2f}. Try, in order: "
+                    "decrease Align.minAlignedFraction by 0.05 (down "
+                    "to 0.2); decrease Align.minAlignedMarkerCount; "
+                    "increase Align.maxSkip and Align.maxDrift by 10."
+                )
+                self.log.line("WARNING: " + msg)
+                print("WARNING: " + msg, file=sys.stderr, flush=True)
+                self.feedback.append(msg)
+        with self.log.stage("flagChimericReads"):
+            self.reads.is_chimeric = RG.flag_chimeric_reads(
+                self.read_graph,
+                self.reads.read_count,
+                max_distance=cr.max_chimeric_read_distance,
+            )
+        if cr.strand_separation_method == 1:
+            with self.log.stage("flagCrossStrandReadGraphEdges1"):
+                flagged = RG.flag_cross_strand_edges1(
+                    self.read_graph,
+                    self.alignments,
+                    self.reads.read_count,
+                    max_distance=cr.cross_strand_max_distance,
+                )
+                self.log.line(f"Flagged {flagged} cross-strand edges.")
+        elif cr.strand_separation_method == 2:
+            with self.log.stage("flagCrossStrandReadGraphEdges2"):
+                flagged = RG.flag_cross_strand_edges2(
+                    self.read_graph,
+                    self.alignments,
+                    self.reads.read_count,
+                    self.reads.is_chimeric,
+                )
+                self.log.line(f"Flagged {flagged} cross-strand edges.")
+        if cr.remove_conflicts or cr.flag_inconsistent_alignments:
+            with self.log.stage("flagInconsistentAlignments"):
+                n_bad = RG.flag_inconsistent_alignments(
+                    self.read_graph,
+                    self.alignments,
+                    self.reads.read_count,
+                    self.reads.is_chimeric,
+                    cr.flag_inconsistent_alignments_triangle_error_threshold,
+                    cr.flag_inconsistent_alignments_least_square_error_threshold,
+                    cr.flag_inconsistent_alignments_least_square_max_distance,
+                )
+                self.log.line(f"Flagged {n_bad} inconsistent read graph edges.")
+        if cr.strand_separation_method or cr.remove_conflicts:
+            # Persist the edge flags set above.
+            self.store.save_stage("ReadGraph", self.read_graph.arrays())
+
+    def create_marker_graph_vertices(self) -> None:
+        import time as _time
+
+        _prof = bool(os.environ.get("SHASTA_TORCH_PROF"))
+        _t0 = _time.monotonic()
+
+        def _mark(name):
+            nonlocal _t0
+            if _prof:
+                t = _time.monotonic()
+                print(f"[mgv prof] {name} {t - _t0:.1f}s", flush=True)
+                _t0 = t
+
+        cm = self.config.marker_graph
+        with self.log.stage("createMarkerGraphVertices"):
+            labels = None
+            u = v = np.zeros(0, np.int64)
+            # The duplicate-marker cleanup pass (rare path) still
+            # consumes explicit pairs; everyone else streams.
+            need_uv = cm.allow_duplicate_markers and cm.cleanup_duplicate_markers
+            if not need_uv:
+                # Stream unites straight into the native DSU — no
+                # materialized pair arrays (the run's largest transient
+                # at scale; labels identical, equality-tested).
+                labels = MG.union_find_labels_from_alignments(
+                    self.markers, self.read_graph, self.alignments,
+                    self.reads.is_chimeric,
+                )
+                _mark("unite_stream")
+            if labels is None:
+                u, v = MG.gather_unite_pairs(
+                    self.markers, self.read_graph, self.alignments,
+                    self.reads.is_chimeric,
+                )
+                _mark("gather_unite_pairs")
+            if not (
+                self.config.assembly.iterative
+                and self.config.assembly.mode == 0
+            ):
+                # The unite/gather pass was the alignments' last
+                # consumer: releasing the 3.8 GB store (SCALE=50) here
+                # instead of after createMarkerGraphEdges keeps the
+                # heavy vertex/edge passes under the memory budget
+                # (iterative assembly re-scores them, so it keeps the
+                # store; stage-store reloads still work).
+                self.release_alignments()
+            min_cov = cm.min_coverage
+            if min_cov == 0:
+                # Histogram of disjoint-set sizes for auto selection.
+                if labels is None:
+                    labels = MG.union_find_labels(self.markers.total_count, u, v)
+                # Labels are min-member representatives: one linear
+                # bincount replaces np.unique's full sort of 10^8
+                # int64 labels.
+                cov_all = np.bincount(labels)
+                hist = np.bincount(cov_all[cov_all > 0])
+                del cov_all
+                # DisjointSetsHistogram.csv (reference:
+                # src/AssemblerMarkerGraph.cpp:224).
+                with open(
+                    os.path.join(self.run_dir, "DisjointSetsHistogram.csv"), "w"
+                ) as f:
+                    f.write("Coverage,Frequency\n")
+                    for c, n in enumerate(hist):
+                        if n:
+                            f.write(f"{c},{n}\n")
+                min_cov = auto_min_coverage(
+                    hist,
+                    min_area_fraction=cm.peak_finder_min_area_fraction,
+                    area_start_index=cm.peak_finder_area_start_index,
+                )
+                _mark("auto_min_coverage")
+                self.log.line(f"Automatically selected MarkerGraph.minCoverage = {min_cov}")
+            self.min_coverage_used = min_cov
+            self.marker_graph = MG.create_marker_graph_vertices(
+                self.markers,
+                u,
+                v,
+                min_coverage=min_cov,
+                max_coverage=cm.max_coverage,
+                min_coverage_per_strand=cm.min_coverage_per_strand,
+                allow_duplicate_markers=cm.allow_duplicate_markers,
+                labels=labels,
+            )
+            _mark("create_vertices")
+            MG.audit_strand_symmetry(self.marker_graph, "vertex creation")
+            # reference: checkMarkerGraphVertices (Assembler.hpp:1275)
+            if not MG.check_marker_graph_vertices(self.marker_graph):
+                raise RuntimeError(
+                    "Marker graph vertexTable/vertices inconsistency "
+                    "after vertex creation."
+                )
+            _mark("audit")
+        if cm.allow_duplicate_markers and cm.cleanup_duplicate_markers:
+            # (reference: srcMain/main.cpp:925-934)
+            with self.log.stage("cleanupDuplicateMarkers"):
+                self.marker_graph = MG.cleanup_duplicate_markers(
+                    self.markers,
+                    self.marker_graph,
+                    u,
+                    v,
+                    min_coverage=min_cov,
+                    min_coverage_per_strand=cm.min_coverage_per_strand,
+                    pattern1_threshold=cm.duplicate_markers_pattern1_threshold,
+                )
+                stats = getattr(self.marker_graph, "cleanup_stats", None)
+                if stats:
+                    self.log.line(
+                        f"Cleaned up {stats['bad']} bad vertices "
+                        f"(pattern 1: {stats['pattern1']}, "
+                        f"pattern 2: {stats['pattern2']})."
+                    )
+
+    def create_marker_graph_edges(self) -> None:
+        cm = self.config.marker_graph
+        if self.config.assembly.mode in (2, 3):
+            raise _mode_not_ported(self.config.assembly.mode)
+        with self.log.stage("createMarkerGraphEdges"):
+            MG.create_marker_graph_edges(self.markers, self.marker_graph)
+        MG.audit_strand_symmetry(self.marker_graph, "edge creation")
+        with self.log.stage("transitiveReduction"):
+            MG.transitive_reduction(
+                self.marker_graph,
+                low_coverage_threshold=cm.low_coverage_threshold,
+                high_coverage_threshold=cm.high_coverage_threshold,
+                max_distance=cm.max_distance,
+                edge_marker_skip_threshold=cm.edge_marker_skip_threshold,
+            )
+        if cm.reverse_transitive_reduction:
+            # (reference: srcMain/main.cpp:946-951)
+            with self.log.stage("reverseTransitiveReduction"):
+                MG.reverse_transitive_reduction(
+                    self.marker_graph,
+                    low_coverage_threshold=cm.low_coverage_threshold,
+                    high_coverage_threshold=cm.high_coverage_threshold,
+                    max_distance=cm.max_distance,
+                )
+        with self.log.stage("pruneMarkerGraphStrongSubgraph"):
+            MG.prune(self.marker_graph, iteration_count=cm.prune_iteration_count)
+        with self.log.stage("simplifyMarkerGraph"):
+            from shasta_tpu_torch.graph.simplify import simplify_marker_graph
+
+            max_lengths = [
+                int(x) for x in str(cm.simplify_max_length).split(",") if x
+            ]
+            simplify_marker_graph(self.marker_graph, max_lengths)
+        self.store.save_stage("MarkerGraph", self.marker_graph.arrays())
+
+    def assemble_mode0(self) -> None:
+        ca = self.config.assembly
+        cm = self.config.marker_graph
+        mg = self.marker_graph
+        with self.log.stage("createAssemblyGraphEdges"):
+            self.assembly_graph = AG.create_assembly_graph(mg)
+        if cm.cross_edge_coverage_threshold > 0:
+            with self.log.stage("removeLowCoverageCrossEdges"):
+                n_removed = AG.remove_low_coverage_cross_edges(
+                    self.assembly_graph, mg, cm.cross_edge_coverage_threshold
+                )
+                if n_removed:
+                    # Rebuild after removal (reference:
+                    # srcMain/main.cpp:973-979).
+                    self.assembly_graph = AG.create_assembly_graph(mg)
+        if ca.detangle_method != 0:
+            from shasta_tpu_torch.graph.detangle import detangle_assembly_graph
+
+            with self.log.stage("detangle"):
+                self.assembly_graph = detangle_assembly_graph(
+                    self.assembly_graph, mg, method=ca.detangle_method,
+                    diagonal_read_count_min=ca.detangle_diagonal_read_count_min,
+                    off_diagonal_read_count_max=(
+                        ca.detangle_off_diagonal_read_count_max
+                    ),
+                    off_diagonal_ratio=ca.detangle_off_diagonal_ratio,
+                )
+        with self.log.stage("assembleMarkerGraphVertices"):
+            self.vertex_repeats = AG.assemble_marker_graph_vertices(
+                self.reads, self.markers, mg, caller=_vertex_caller_name(ca.consensus_caller)
+            )
+        with self.log.stage("assembleMarkerGraphEdges"):
+            # Only edges on assembled chains need consensus.
+            needed = np.zeros(mg.edge_count, dtype=bool)
+            for a in range(self.assembly_graph.edge_count):
+                if self.assembly_graph.is_assembled_edge(a):
+                    needed[self.assembly_graph.chain(a)] = True
+            self.edge_consensus = AG.assemble_marker_graph_edges(
+                self.reads,
+                self.markers,
+                mg,
+                needed=needed,
+                caller=get_consensus_caller(ca.consensus_caller),
+                length_threshold_markers=ca.marker_graph_edge_length_threshold_for_consensus,
+            )
+        with self.log.stage("assemble"):
+            AG.assemble_segments(
+                self.assembly_graph,
+                mg,
+                self.markers,
+                self.vertex_repeats,
+                self.edge_consensus,
+            )
+        self.store.save_stage("AssemblyGraph", self.assembly_graph.arrays())
+
+    def _write_coverage_data(self, length_threshold: int) -> None:
+        """Per-position coverage detail of long assembled segments
+        (reference: Assembly.storeCoverageData writes
+        AssembledSegment<id>-Coverage.csv for segments of raw length
+        >= storeCoverageDataCsvLengthThreshold)."""
+        ag = self.assembly_graph
+        mg = self.marker_graph
+        vcov = mg.vertex_coverage()
+        for e in range(ag.edge_count):
+            if not ag.is_assembled_edge(e):
+                continue
+            if ag.raw_sequence(e).shape[0] < length_threshold:
+                continue
+            chain = ag.chain(e)
+            path = os.path.join(
+                self.run_dir, f"AssembledSegment-{e}-Coverage.csv"
+            )
+            with open(path, "w") as f:
+                f.write(
+                    "Position,MarkerGraphEdgeId,EdgeCoverage,"
+                    "SourceVertexCoverage,TargetVertexCoverage\n"
+                )
+                for pos, me in enumerate(chain.tolist()):
+                    f.write(
+                        f"{pos},{me},{mg.coverage[me]},"
+                        f"{vcov[mg.source[me]]},{vcov[mg.target[me]]}\n"
+                    )
+
+    def write_output(self) -> Dict:
+        stats = AG.assembly_statistics(self.assembly_graph)
+        with self.log.stage("writeOutput"):
+            AG.write_fasta(os.path.join(self.run_dir, "Assembly.fasta"), self.assembly_graph)
+            AG.write_gfa1(
+                os.path.join(self.run_dir, "Assembly.gfa"),
+                self.assembly_graph,
+                self.markers.k,
+                self.vertex_repeats,
+            )
+            AG.write_gfa1(
+                os.path.join(self.run_dir, "Assembly-BothStrands.gfa"),
+                self.assembly_graph,
+                self.markers.k,
+                self.vertex_repeats,
+                both_strands=True,
+            )
+            ca_out = self.config.assembly
+            if ca_out.write_reads_by_assembled_segment:
+                # (reference: Assembly.writeReadsByAssembledSegment ->
+                # gatherOrientedReadsByAssemblyGraphEdge)
+                from shasta_tpu_torch.graph.detangle import _edge_oriented_reads
+
+                with open(
+                    os.path.join(self.run_dir, "OrientedReadsBySegment.csv"),
+                    "w",
+                ) as f:
+                    f.write("Segment,OrientedReadId,ReadId,Strand\n")
+                    for e in range(self.assembly_graph.edge_count):
+                        if not self.assembly_graph.is_assembled_edge(e):
+                            continue
+                        for orid in _edge_oriented_reads(
+                            self.assembly_graph, self.marker_graph, e
+                        ).tolist():
+                            f.write(f"{e},{orid},{orid // 2},{orid % 2}\n")
+            if ca_out.store_coverage_data:
+                # (reference: Assembly.storeCoverageData +
+                # storeCoverageDataCsvLengthThreshold: per-segment
+                # coverage detail for long segments)
+                self._write_coverage_data(
+                    ca_out.store_coverage_data_csv_length_threshold
+                )
+            import resource
+
+            peak_rss_kb = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+            summary = {
+                "readCount": self.reads.read_count,
+                "peakMemoryUsageKB": int(peak_rss_kb),
+                "rawBaseCount": self.reads.total_raw_bases,
+                "rleBaseCount": self.reads.total_rle_bases,
+                "markerCount": self.markers.total_count,
+                "alignmentCandidateCount": (
+                    int(self.candidates.count)
+                    if self.candidates is not None
+                    else getattr(self, "n_candidates", 0)
+                ),
+                "alignmentCount": (
+                    int(self.alignments.count)
+                    if self.alignments is not None
+                    else getattr(self, "n_alignments", 0)
+                ),
+                "chimericReadCount": int(self.reads.is_chimeric.sum()),
+                "palindromicReadCount": int(self.reads.is_palindromic.sum()),
+                "discardedShortReadCount": self.reads.discards.short_read_count,
+                "discardedBadBaseReadCount": self.reads.discards.bad_base_read_count,
+                "isolatedReadCount": int(
+                    (np.diff(self.read_graph.adj_offsets)[0::2] == 0).sum()
+                ) if self.read_graph is not None else 0,
+                "markerGraphVertexCount": self.marker_graph.vertex_count,
+                "markerGraphEdgeCount": self.marker_graph.edge_count,
+                "markerGraphMinCoverageUsed": self.min_coverage_used,
+                "assembledSegmentCount": stats["segment_count"],
+                "totalAssembledSegmentLength": stats["total_length"],
+                "longestAssembledSegmentLength": stats["longest"],
+                "assembledSegmentN50": stats["n50"],
+                "stageSeconds": dict(self.log.stage_seconds),
+            }
+            if self.lowhash_stats:
+                summary["lowHashStatistics"] = self.lowhash_stats
+            if self.feedback:
+                summary["feedback"] = list(self.feedback)
+            with open(os.path.join(self.run_dir, "AssemblySummary.json"), "w") as f:
+                json.dump(summary, f, indent=2)
+            self.config.write_conf(os.path.join(self.run_dir, "shasta.conf"))
+            self._write_html_summary(summary)
+        return summary
+
+    def _write_html_summary(self, summary: Dict) -> None:
+        """AssemblySummary.html + index.html (reference:
+        srcMain/main.cpp:822-830)."""
+        rows = "".join(
+            f"<tr><th>{k}</th><td>{v}</td></tr>"
+            for k, v in summary.items()
+            if not isinstance(v, dict)
+        )
+        html = (
+            "<html><head><style>body{font-family:sans-serif;margin:2em}"
+            "table{border-collapse:collapse}td,th{border:1px solid #999;"
+            "padding:2px 8px;text-align:left}</style></head><body>"
+            "<h1>shasta_tpu_torch assembly summary</h1>"
+            f"<table>{rows}</table></body></html>"
+        )
+        with open(os.path.join(self.run_dir, "AssemblySummary.html"), "w") as f:
+            f.write(html)
+        with open(os.path.join(self.run_dir, "index.html"), "w") as f:
+            f.write(
+                "<html><body><h1>shasta_tpu_torch run</h1><ul>"
+                '<li><a href="AssemblySummary.html">Assembly summary</a></li>'
+                '<li><a href="AssemblySummary.json">Assembly summary (JSON)</a></li>'
+                "</ul><p>Interactive exploration (the explore command) is "
+                "not ported to shasta_tpu_torch yet (ROADMAP.md, modules to "
+                "port, item 14).</p></body></html>"
+            )
+
+
+def _vertex_caller_name(spec: str) -> str:
+    return "Median" if spec == "Median" else "Modal"
+
+
+def run_assembly(
+    input_files: List[str],
+    run_dir: str,
+    config: Optional[AssemblyConfig] = None,
+    device="cuda",
+) -> Dict:
+    """The full mode-0 pipeline (reference call sequence:
+    srcMain/main.cpp:516-830 + mode0Assembly :845-1045).
+
+    ``device``: where the alignment DP runs, "cuda" (the CUDA kernels;
+    raises without a card) or "cpu" (their plain PyTorch version). The
+    output is identical on either."""
+    t0 = time.monotonic()
+    a = Assembler(run_dir, config, device=device)
+    from shasta_tpu_torch.utils.perf import Tee
+
+    with Tee(os.path.join(run_dir, "stdout.log")):
+        return _run_assembly_stages(a, input_files, t0)
+
+
+def _run_assembly_stages(a: "Assembler", input_files: List[str], t0: float) -> Dict:
+    ca = a.config.assembly
+    if ca.mode in (2, 3):
+        raise _mode_not_ported(ca.mode)
+    if ca.iterative:
+        raise _not_ported("Assembly.iterative", 9, "pipeline/iterative.py")
+    a.add_reads(input_files)
+    a.select_kmers()
+    a.find_markers()
+    a.flag_palindromic_reads()
+    a.find_alignment_candidates()
+    a.compute_alignments()
+    # Candidates are consumed; the stage store keeps them reloadable
+    # (explorer/stage-wise reruns reattach there). Freeing the host
+    # copies eagerly is part of the bytes-per-base budget (the
+    # reference frees/remaps stage data the same way via its mmap
+    # namespace, src/MemoryMappedVector.hpp remove()).
+    a.release_candidates()
+    a.create_read_graph()
+    a.create_marker_graph_vertices()
+    a.create_marker_graph_edges()
+    a.release_alignments()
+    a.assemble_mode0()
+    summary = a.write_output()
+    summary["elapsedSeconds"] = time.monotonic() - t0
+    # CPU time and average utilization (reference: srcMain/main.cpp:798-810).
+    cpu = os.times()
+    summary["cpuSeconds"] = round(cpu.user + cpu.system, 3)
+    if summary["elapsedSeconds"] > 0:
+        summary["averageCpuUtilization"] = round(
+            summary["cpuSeconds"] / summary["elapsedSeconds"], 3
+        )
+    a.log.line(f"Assembly done in {summary['elapsedSeconds']:.3f} s.")
+    a.log.close()
+    return summary

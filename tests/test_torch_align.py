@@ -191,9 +191,11 @@ def test_fault_device_errors_propagate(inputs, monkeypatch):
 
 def test_fault_env_budgets_read_per_call_not_baked(inputs, monkeypatch):
     """ADVICE.md: SHASTA_TPU_WAVES is baked into the reference's jit
-    cache at first trace. The port has no waves setting; its environment
-    settings of the alignment engine, the class-matrix and device-queue
-    budgets, take effect in every runner, not only the first."""
+    cache at first trace. The port's SHASTA_TORCH_WAVES is read on every
+    DP call: align_candidates picks it up between two calls in one
+    process. Its other environment settings of the alignment engine, the
+    class-matrix and device-queue budgets, take effect in every runner,
+    not only the first."""
     budgets = []
     for mb in (1, 2):
         monkeypatch.setenv("SHASTA_TORCH_MAT_MB", str(mb))
@@ -201,6 +203,21 @@ def test_fault_env_budgets_read_per_call_not_baked(inputs, monkeypatch):
         runner = _small_runner(inputs, None, 4, monkeypatch)
         budgets.append((runner.dev_csr._mat_budget, runner._drain_budget))
     assert budgets == [(1 << 20, 3 << 20), (2 << 20, 6 << 20)]
+
+    args, _cand, ref = inputs
+    seen = []
+    real = K.resolve_waves
+
+    def spy(waves=None):
+        seen.append(real(waves))
+        return seen[-1]
+
+    monkeypatch.setattr(K, "resolve_waves", spy)
+    for w in ("2", "4"):
+        monkeypatch.setenv("SHASTA_TORCH_WAVES", w)
+        _assert_store_equal(A.align_candidates(*args, device="cpu"), ref)
+        assert seen and set(seen) == {int(w)}
+        seen.clear()
 
 
 def test_band_reduce_matches_host_mapping():

@@ -101,6 +101,58 @@ def test_plain_matches_jnp_oracle(seed):
             ], t
 
 
+@pytest.mark.parametrize("waves", [2, 4])
+@pytest.mark.parametrize(
+    "seed,W", [(0, 128), (3, 128), (5, 512)], ids=["seed0", "seed3", "W512"]
+)
+def test_plain_matches_pallas_waves_interpret(
+    interpret_mode, monkeypatch, seed, W, waves
+):
+    """The JAX package's _kernel_waves (interpret mode) on the batches of
+    test_align_pallas.py::test_waves_kernel_matches_default equals the
+    port's output with the same waves, exactly; a spy shows the JAX run
+    took the waves kernel. (SHASTA_TPU_BB=32 only narrows the JAX
+    kernel's pair blocks, so the padded batch is smaller.)"""
+    from tests.test_align_pallas import make_batch as pallas_batch
+
+    monkeypatch.setenv("SHASTA_TPU_BB", "32")
+    taken = []
+    real = AP._kernel_waves
+
+    def spy(*args, **kw):
+        taken.append(kw["waves"])
+        return real(*args, **kw)
+
+    monkeypatch.setattr(AP, "_kernel_waves", spy)
+    LA = LB = 128
+    a, a_len, b, b_len, bm = pallas_batch(seed, B=12, LA=LA, LB=LB, W=W)
+    got = port(a, a_len, b, b_len, bm, LA=LA, LB=LB, W=W, waves=waves)
+    ref = jax_kernel(a, a_len, b, b_len, bm, LA=LA, LB=LB, W=W, waves=waves)
+    assert taken and set(taken) == {waves}
+    assert ref.dtype == np.int32 and np.array_equal(got, ref)
+    assert (got[:, 0] > 0).sum() >= 6  # the batch has real alignments
+
+
+def test_resolve_waves_reads_env_each_call(monkeypatch):
+    """SHASTA_TORCH_WAVES is read on every call (unlike the JAX package's
+    SHASTA_TPU_WAVES, baked in at first trace); 1, 2 and 4 are the
+    allowed values, and banded_align_pairs rejects any other."""
+    monkeypatch.delenv("SHASTA_TORCH_WAVES", raising=False)
+    assert K.resolve_waves() == 1
+    for w in ("2", "4", "1"):
+        monkeypatch.setenv("SHASTA_TORCH_WAVES", w)
+        assert K.resolve_waves() == int(w)
+    assert K.resolve_waves(4) == 4
+    monkeypatch.setenv("SHASTA_TORCH_WAVES", "3")
+    with pytest.raises(ValueError, match="1, 2 or 4"):
+        K.resolve_waves()
+    with pytest.raises(ValueError, match="1, 2 or 4"):
+        K.resolve_waves(8)
+    a, a_len, b, b_len, bm = make_batch(0, B=4, LA=16, LB=16, W=16)
+    with pytest.raises(ValueError, match="1, 2 or 4"):
+        port(a, a_len, b, b_len, bm, LA=16, LB=16, W=16)
+
+
 def test_edge_cases_match_pallas_interpret(interpret_mode):
     """The batch of test_align_pallas.py::test_edge_cases_match_jnp_kernel:
     empty pairs, length-1 sequences, bands at both clamp limits, a

@@ -51,6 +51,32 @@ def test_kernels_match_plain_on_card(card, LA, W):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("waves", [2, 4])
+@pytest.mark.parametrize("LA,W", [(2048, 128), (512, 2048)])
+def test_waves_kernel_matches_plain_on_card(card, LA, W, waves):
+    """banded_fwd_waves, 2 or 4 pairs per block, against the plain
+    version: dirs of every processed row, best, bi, bd and the fused
+    output are equal. B = 11 leaves the last block partly empty."""
+    a, a_len, b, b_len, bm = make_batch(LA + waves, B=11, LA=LA, LB=LA, W=W)
+    args = [torch.from_numpy(x).to(card) for x in (a, a_len, b, b_len, bm)]
+    kw = dict(LA=LA, LB=LA, W=W, **KW)
+    pa, pal, pb, pbl, pbm = K.prepare_inputs(*args, LA=LA, LB=LA, W=W)
+    before = K.LAUNCHES["banded_fwd_waves"]
+    dirs, best, bi, bd = K.banded_fwd_waves(pa, pal, pb, pbl, pbm, waves=waves, **kw)
+    pdirs, pbest, pbi, pbd = K.banded_fwd_plain(pa, pal, pb, pbl, pbm, **kw)
+    got = K.banded_align_pairs(*args, waves=waves, **kw)
+    ref = K.banded_align_pairs_plain(*args, **kw)
+    torch.cuda.synchronize()
+    rows = (torch.arange(K.n_words(LA), device=card)[None, :] * 16) < pal[:, None]
+    assert not bool(((dirs != pdirs) & rows[:, :, None]).any())
+    for x, y in ((best, pbest), (bi, pbi), (bd, pbd)):
+        assert torch.equal(x, y)
+    assert torch.equal(got, ref)
+    assert int(got[:, 0].sum()) > 0
+    assert K.LAUNCHES["banded_fwd_waves"] == before + 2
+
+
+@pytest.mark.cuda
 def test_align_candidates_card_matches_cpu(card):
     """align_candidates on the card (kernels) and on the CPU (plain
     version) give equal AlignmentStores, dtypes included."""

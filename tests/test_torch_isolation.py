@@ -9,33 +9,36 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "shasta_tpu_torch")
 
 _CHILD = r"""
-import importlib, os, pkgutil, sys, tempfile
+import contextlib, importlib, io, json, os, pkgutil, sys, tempfile
 import shasta_tpu_torch
 for m in pkgutil.walk_packages(shasta_tpu_torch.__path__, "shasta_tpu_torch."):
     importlib.import_module(m.name)
-from shasta_tpu_torch.pipeline.assemble import Assembler
-from shasta_tpu_torch.pipeline.config import AssemblyConfig
+from shasta_tpu_torch.__main__ import main
 from shasta_tpu_torch.utils import synth
-cfg = AssemblyConfig()
-# tests/test_assembly_e2e.py:small_config on the golden input
-cfg.reads.min_read_length = 500
-cfg.kmers.k = 8
-cfg.kmers.probability = 0.1
-cfg.min_hash.hash_fraction = 0.05
-cfg.min_hash.min_hash_iteration_count = 6
-cfg.min_hash.max_bucket_size = 60
-cfg.align.min_aligned_marker_count = 20
-cfg.align.max_skip = 60
-cfg.align.max_drift = 60
-cfg.align.max_trim = 60
 d = tempfile.mkdtemp(dir=sys.argv[1])
 g = synth.random_genome(25000, seed=4242)
 fa = os.path.join(d, "reads.fasta")
 synth.write_fasta(fa, synth.sample_reads(g, 130, 3000, seed=4243, both_strands=True))
-a = Assembler(os.path.join(d, "run"), cfg, device="cpu")
-a.add_reads([fa]); a.select_kmers(); a.find_markers()
-a.flag_palindromic_reads(); a.find_alignment_candidates(); a.compute_alignments()
-assert a.alignments.count == 1992, a.alignments.count
+conf = os.path.join(d, "empty.conf")
+open(conf, "w").close()
+# tests/test_assembly_e2e.py:small_config on the golden input
+small = [
+    "--Reads.minReadLength", "500", "--Kmers.k", "8",
+    "--Kmers.probability", "0.1", "--MinHash.hashFraction", "0.05",
+    "--MinHash.minHashIterationCount", "6", "--MinHash.maxBucketSize", "60",
+    "--Align.minAlignedMarkerCount", "20", "--Align.maxSkip", "60",
+    "--Align.maxDrift", "60", "--Align.maxTrim", "60",
+    "--ReadGraph.maxAlignmentCount", "8", "--MarkerGraph.minCoverage", "3",
+]
+out = io.StringIO()
+with contextlib.redirect_stdout(out):
+    rc = main(["--command", "assemble", "--config", conf, "--input", fa,
+               "--assemblyDirectory", os.path.join(d, "run"),
+               "--device", "cpu"] + small)
+assert rc == 0, rc
+summary = json.loads(out.getvalue())
+assert summary["alignmentCount"] == 1992, summary["alignmentCount"]
+assert summary["assembledSegmentCount"] == 1, summary["assembledSegmentCount"]
 bad = sorted(
     k for k in sys.modules
     if k in ("jax", "shasta_tpu") or k.startswith(("jax.", "jaxlib", "shasta_tpu."))
@@ -45,9 +48,9 @@ print("LEAKED", bad)
 
 
 def test_package_runs_without_jax_or_reference(tmp_path):
-    """A fresh interpreter imports every module of the port and runs the
-    six stages on the golden input on the CPU; neither jax nor
-    shasta_tpu is loaded."""
+    """A fresh interpreter imports every module of the port, the CLI
+    included, and runs the whole assemble command on the golden input
+    on the CPU; neither jax nor shasta_tpu is loaded."""
     env = dict(os.environ, OMP_NUM_THREADS="1")
     env.pop("PYTHONPATH", None)
     out = subprocess.run(
