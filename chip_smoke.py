@@ -7,12 +7,18 @@ no result line):
 
 1. Device and build: the card's name and power limit, then the CUDA
    kernels built from shasta_tpu_torch/csrc with nvcc (the native host
-   library builds beside it, in parallel).
+   library builds beside it, in parallel); ptxas's registers and spills,
+   and the int32 instructions the anti-diagonal body issues per band
+   cell (its SASS), which must be no fewer than the bound counts.
 2. Kernels against their plain PyTorch version on the card, at the
-   main path's (LA, W) classes: exact int32 equality of each kernel's
-   output and of the fused (B, 16 + LA) result, banded_fwd_waves at
-   waves 2 and 4 wherever W <= 4096; times, Gcells/s and the least time
-   the card could take (the bound).
+   main path's (LA, W) classes, odd widths, LA 1 and 17, and the
+   edge-case batch: exact int32 equality of each kernel's output and of
+   the fused (B, 16 + LA) result. banded_fwd runs both its bodies where
+   W <= DIAG_W_LIMIT (the anti-diagonal body and the row-scan body, timed
+   in turns in this call), banded_fwd_waves runs at waves 2 and 4
+   wherever W <= 4096; times, Gcells/s and the least time the card could
+   take (the bound). Then both forward bodies and the waves kernel at 1
+   to 16 blocks per SM.
 3. The golden input (tests/golden/mode0_stage_hashes.json's) through the
    whole assemble command (shasta_tpu_torch.__main__.main) on the card,
    on the card with SHASTA_TORCH_WAVES=2, and on the CPU: all eight
@@ -21,11 +27,14 @@ no result line):
    byte-equal across the three runs.
 4. Mode 0 end to end at a real size on the card (run_assembly): a 5 Mb
    random genome, ONT-like reads at 25x, Nanopore-May2022 verbatim. The
-   launch counts are reset just before the run and read just after; 256
-   kept pairs are re-aligned with the plain version on the card and must
-   agree. Then computeAlignments runs again on the run's own Markers and
-   AlignmentCandidates with SHASTA_TORCH_WAVES=2 (the waves kernel's
-   main path) and must give the same Alignments hash.
+   launch counts are reset just before the run and read just after, and
+   the launch trace must show every banded_fwd class on the body
+   fwd_body picks, the W 128 and 512 classes with LA >= W / 2 on the
+   anti-diagonal body; 256 kept pairs are re-aligned with the plain
+   version on the card and must agree. Then computeAlignments runs
+   again on the run's own Markers and AlignmentCandidates with
+   SHASTA_TORCH_WAVES=2 (the waves kernel's main path) and must give the
+   same Alignments hash.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -38,6 +47,7 @@ import hashlib
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -73,15 +83,26 @@ WAVES = (2, 4)
 SCORES = dict(match=6, mismatch=-1, gap=-1)
 # (LA = LB, W, pairs): phase 1's class, the phase-2 classes (4096 x 128
 # takes the most kernel time on the real-size run), a wide band, the
-# ultra-long classes, and a band past 4096 lanes (the forward kernel's
-# 16-lanes-per-thread instantiation, which a max_band above 2047 reaches).
+# ultra-long classes, a band past 4096 lanes (the row-scan body's
+# 16-lanes-per-thread instantiation, which a max_band above 2047
+# reaches), widths that are not a multiple of 32 (the anti-diagonal
+# body's phantom lanes at K = 2, 16, 16; the row-scan body just past
+# 2048), and LA 1 and 17.
 SHAPES = [
     (128, 512, 2048), (2048, 128, 512), (4096, 512, 256), (1024, 2048, 128),
     (4096, 128, 256), (8192, 512, 64), (32768, 128, 64), (512, 8192, 8),
+    (1024, 33, 256), (1024, 288, 256), (2048, 511, 128), (512, 2049, 32),
+    (1, 128, 64), (17, 512, 64),
 ]
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 INT32_LANES_PER_SM = 64  # Hopper SM: 4 partitions x 16 INT32 units
 TB_OPS_PER_ROW = 12  # banded_tb_kernel's int32 work per walked row
+# SASS opcodes left out of the count of issued int32 operations: memory,
+# control and shuffles (uniform-datapath U* opcodes are left out too).
+NOT_INT_OPS = {
+    "SHFL", "BRA", "BSSY", "BSYNC", "STG", "LDG", "LDC", "LDS", "STS", "BAR",
+    "NOP", "EXIT", "WARPSYNC",
+}
 
 
 def log(msg: str) -> None:
@@ -120,12 +141,73 @@ def phase_device_and_build():
     nvcc_s = K.build_kernels(force=True)
     t.join()
     log(
-        f"build: nvcc {nvcc_s:.2f}s (csrc/banded_align.cu, sm_90a); native "
-        f"host library {'ok' if native_ok[0] else 'unavailable'}; "
-        f"wall {time.perf_counter() - t0:.2f}s"
+        f"build: nvcc {nvcc_s:.2f}s ("
+        + ", ".join(os.path.basename(c) for c in K.kernel_sources()[0])
+        + f", one nvcc each, sm_90a); native host library "
+        f"{'ok' if native_ok[0] else 'unavailable'}; wall {time.perf_counter() - t0:.2f}s"
     )
+    for src, report in K.PTXAS_REPORT.items():
+        fn = None
+        for ln in report.splitlines():
+            m = re.search(r"Compiling entry function '.*?(banded_[a-z_]+kernel)(\w*)'", ln)
+            if m:
+                fn = m.group(1) + "<" + ",".join(re.findall(r"Li(\d+)E", m.group(2))) + ">"
+            elif fn and ("registers" in ln or "spill" in ln):
+                log(f"ptxas {src} {fn}: {ln.split(':', 1)[-1].strip()}")
+    sass = diag_sass_ops_per_cell()
+    log(
+        f"sass banded_fwd_diag_kernel<4,false>: {sass['per_cell']:.2f} int32 "
+        f"instructions issued per band cell ({sass['int_ops']} per pair step of "
+        f"4 cells: {sass['by_opcode']}); the bound counts "
+        f"{K.FWD_INT_OPS_PER_CELL}"
+    )
+    if sass["per_cell"] < K.FWD_INT_OPS_PER_CELL:
+        raise AssertionError(
+            "the anti-diagonal body issues fewer int32 instructions per cell than "
+            "FWD_INT_OPS_PER_CELL: the bound is not a lower bound"
+        )
     sm_clock_mhz = float(smi("clocks.max.sm").split()[0])
-    return sm_clock_mhz
+    return sm_clock_mhz, sass
+
+
+def diag_sass_ops_per_cell():
+    """The int32 instructions banded_fwd_diag_kernel<4, false> (one
+    warp, W 65 to 128) issues per band cell, from cuobjdump -sass of the
+    built library: its pair-step loop (the backward branch around the
+    input slide's SHFL.IDX; 4 cells per thread), without the regions a
+    forward branch inside it skips (the 16-row flush stores) and without
+    the NOT_INT_OPS and U* opcodes."""
+    from shasta_tpu_torch.ops import align_kernel as K
+
+    tool = os.path.join(os.path.dirname(K._nvcc()), "cuobjdump")
+    sass = subprocess.run(
+        [tool, "-sass", K._SO], capture_output=True, text=True, check=True
+    ).stdout
+    fn = next(
+        f for f in sass.split("Function : ")[1:]
+        if "banded_fwd_diag_kernelILi4ELb0E" in f.split("\n", 1)[0]
+    )
+    ins = [
+        (int(a, 16), re.sub(r"^@!?U?P[T\d]+\s+", "", x.strip()))
+        for a, x in re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", fn)
+    ]
+    branches = [
+        (a, int(m.group(1), 16)) for a, x in ins
+        if (m := re.search(r"BRA (?:P\d, )?0x([0-9a-f]+)", x))
+    ]
+    lo, hi = next(
+        (t, a) for a, t in branches
+        if t < a and any(x.startswith("SHFL.IDX") for b, x in ins if t <= b <= a)
+    )
+    skipped = {
+        b for a, t in branches if lo <= a < t <= hi for b, _ in ins if a < b < t
+    }
+    ops = [
+        x.split()[0].split(".")[0] for a, x in ins if lo <= a <= hi and a not in skipped
+    ]
+    ops = [o for o in ops if o not in NOT_INT_OPS and not o.startswith("U")]
+    by_opcode = {o: ops.count(o) for o in sorted(set(ops), key=ops.count, reverse=True)}
+    return {"int_ops": len(ops), "per_cell": len(ops) / 4, "by_opcode": by_opcode}
 
 
 # ---------------------------------------------------------------------------
@@ -159,6 +241,61 @@ def make_batch(seed, B, LA, W, alpha=1000):
     bm[1] = -(LA + W) - 7
     bm[2] = LA + 1
     bm[3] = -(LA + W) + W // 2
+    return a, a_len, b, b_len, bm
+
+
+def edge_batch(LA, W):
+    """tests/test_torch_align_kernel.py::test_edge_cases_match_pallas_interpret's
+    batch: empty pairs, length-1 sequences, bands at both clamp limits,
+    a full-length identical pair and padding rows."""
+    B = 8
+    rng = np.random.default_rng(9)
+    a = np.full((B, LA), -1, np.int32)
+    b = np.full((B, LA), -2, np.int32)
+    a_len = np.zeros(B, np.int32)
+    b_len = np.zeros(B, np.int32)
+    bm = np.zeros(B, np.int32)
+    g = rng.integers(0, 30, 300).astype(np.int32)
+    b[0, :50] = g[:50]
+    b_len[0] = 50
+    a[1, :50] = g[:50]
+    a_len[1] = 50
+    a[2, 0] = b[2, 0] = 7
+    a_len[2] = b_len[2] = 1
+    for t, band in ((3, -(LA + W)), (4, LA)):
+        a[t, :60] = b[t, :60] = g[:60]
+        a_len[t] = b_len[t] = 60
+        bm[t] = band
+    a[5] = b[5] = g[:LA]
+    a_len[5] = b_len[5] = LA
+    return a, a_len, b, b_len, bm
+
+
+def gap_batch(LA, W, seed=11):
+    """tests/torch_common.py:gap_batch: pairs with 40- and 70-long gaps,
+    whose traceback paths cross 32-lane chunks of the band both ways."""
+    rng = np.random.default_rng(seed)
+    B = 8
+    a = np.full((B, LA), -1, np.int32)
+    b = np.full((B, LA), -2, np.int32)
+    a_len = np.zeros(B, np.int32)
+    b_len = np.zeros(B, np.int32)
+    bm = np.zeros(B, np.int32)
+    n = LA - 80
+    for t in range(B):
+        L = (40, 70)[t % 2]
+        g = rng.integers(0, 1000, n).astype(np.int32)
+        ins = rng.integers(1000, 2000, L).astype(np.int32)
+        cut = n // 3 + 7 * t
+        long_ = np.concatenate([g[:cut], ins, g[cut:]])
+        if t < B // 2:
+            a[t, :n], b[t, : n + L] = g, long_
+            a_len[t], b_len[t] = n, n + L
+            bm[t] = -(W // 8) - (t % 3)
+        else:
+            a[t, : n + L], b[t, :n] = long_, g
+            a_len[t], b_len[t] = n + L, n
+            bm[t] = -L - (W // 8) + (t % 3)
     return a, a_len, b, b_len, bm
 
 
@@ -203,76 +340,91 @@ def class_bound(name, LA, W, B, work, sm_clock_mhz):
     return bound_ms(work * TB_OPS_PER_ROW, 4 * B * LA + 4 * work + 16 * B, sm_clock_mhz)
 
 
-def phase_kernels(sm_clock_mhz):
+def check_kernels(host, LA, W):
+    """Every kernel against the plain version on one batch: banded_fwd
+    (each body that takes W) on every dirs word of a processed row and
+    on best, bi and bd; banded_tb on the plain dirs; the fused output;
+    banded_fwd_waves (W <= 4096, waves 2 and 4) followed by banded_tb.
+    Returns (device inputs, plain forward, plain fused, max error)."""
     from shasta_tpu_torch.ops import align_kernel as K
 
-    results = {}
-    for LA, W, B in SHAPES:
-        kw = dict(LA=LA, LB=LA, W=W, **SCORES)
-        host = make_batch(LA * 7 + W, B, LA, W)
-        dev = [torch.from_numpy(x).cuda() for x in host]
-        a, a_len, b, b_len, bm = K.prepare_inputs(*dev, LA=LA, LB=LA, W=W)
+    kw = dict(LA=LA, LB=LA, W=W, **SCORES)
+    dev = [torch.from_numpy(x).cuda() for x in host]
+    a, a_len, b, b_len, bm = K.prepare_inputs(*dev, LA=LA, LB=LA, W=W)
+    plain = K.banded_fwd_plain(a, a_len, b, b_len, bm, **kw)
+    pdirs, pbest, pbi, pbd = plain
+    pmj = K.banded_tb_plain(pdirs, pbi, pbd, bm, LA=LA, W=W)
+    pfused = torch.cat([K.metrics_from_mj(pmj, pbest), pmj], dim=1)
+    words = (torch.arange(K.n_words(LA), device="cuda")[None, :] * 16) < a_len[:, None]
 
-        # The plain version once, timed: forward, then traceback.
-        t0 = time.perf_counter()
-        pdirs, pbest, pbi, pbd = K.banded_fwd_plain(a, a_len, b, b_len, bm, **kw)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        pmj = K.banded_tb_plain(pdirs, pbi, pbd, bm, LA=LA, W=W)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        pfused = torch.cat([K.metrics_from_mj(pmj, pbest), pmj], dim=1)
-
-        # banded_fwd against the plain forward: best/bi/bd, and every
-        # dirs word that holds a processed row (the traceback reads no
-        # other).
-        dirs, best, bi, bd = K.banded_fwd(a, a_len, b, b_len, bm, **kw)
-        torch.cuda.synchronize()
-        words = (torch.arange(K.n_words(LA), device="cuda")[None, :] * 16) < a_len[:, None]
-        fwd_err = max(
+    def fwd_err(out):
+        dirs, best, bi, bd = out
+        return max(
             int((best - pbest).abs().max()), int((bi - pbi).abs().max()),
             int((bd - pbd).abs().max()),
             int(((dirs != pdirs) & words[:, :, None]).sum()),
         )
-        # banded_tb against the plain traceback on the same inputs.
-        mj = K.banded_tb(pdirs, pbi, pbd, bm, LA=LA, W=W)
+
+    errs = {}
+    for body in ("diag", "rows") if W <= K.DIAG_W_LIMIT else ("rows",):
+        errs[f"fwd {body}"] = fwd_err(K._banded_fwd_body(body, a, a_len, b, b_len, bm, **kw))
+    errs["tb"] = int((K.banded_tb(pdirs, pbi, pbd, bm, LA=LA, W=W) - pmj).abs().max())
+    errs["fused"] = int((K.banded_align_pairs(*dev, **kw) - pfused).abs().max())
+    for w in WAVES if W <= K.WAVES_MAX_W else ():
+        errs[f"waves {w}"] = max(
+            fwd_err(K.banded_fwd_waves(a, a_len, b, b_len, bm, waves=w, **kw)),
+            int((K.banded_align_pairs(*dev, waves=w, **kw) - pfused).abs().max()),
+        )
+    torch.cuda.synchronize()
+    bad = {k: v for k, v in errs.items() if v}
+    if bad:
+        raise AssertionError(f"kernel != plain at LA={LA} W={W}: {bad}")
+    return (a, a_len, b, b_len, bm), plain, pfused, max(errs.values())
+
+
+def phase_kernels(sm_clock_mhz):
+    from shasta_tpu_torch.ops import align_kernel as K
+
+    for W in (128, 512):
+        check_kernels(edge_batch(128, W), 128, W)
+        check_kernels(gap_batch(256, W), 256, W)
+        log(f"edge-case and long-gap batches at W={W}: every kernel equal to the plain version")
+    results = {}
+    for LA, W, B in SHAPES:
+        kw = dict(LA=LA, LB=LA, W=W, **SCORES)
+        host = make_batch(LA * 7 + W, B, LA, W)
+        # The plain version once, timed: forward, then traceback.
+        dev = [torch.from_numpy(x).cuda() for x in host]
+        a, a_len, b, b_len, bm = K.prepare_inputs(*dev, LA=LA, LB=LA, W=W)
         torch.cuda.synchronize()
-        tb_err = int((mj - pmj).abs().max())
-        # The public fused output, kernels end to end, against the plain.
-        fused = K.banded_align_pairs(*dev, **kw)
+        t0 = time.perf_counter()
+        pdirs, pbest, pbi, pbd = K.banded_fwd_plain(a, a_len, b, b_len, bm, **kw)
         torch.cuda.synchronize()
-        fused_err = int((fused - pfused).abs().max())
-        if fwd_err or tb_err or fused_err:
-            raise AssertionError(
-                f"kernel != plain at LA={LA} W={W}: fwd {fwd_err} tb {tb_err} "
-                f"fused {fused_err}"
-            )
-        n_matched = int(fused[:, 0].sum())
-        if n_matched == 0:
+        t1 = time.perf_counter()
+        K.banded_tb_plain(pdirs, pbi, pbd, bm, LA=LA, W=W)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        del pdirs
+        _, _, pfused, max_err = check_kernels(host, LA, W)
+        n_matched = int(pfused[:, 0].sum())
+        if n_matched == 0 and LA > 1:
             raise AssertionError(f"no matches at LA={LA} W={W}: a vacuous check")
 
-        # banded_fwd_waves (W <= 4096) against the same plain forward,
-        # and the fused output with the waves kernel selected.
-        waves_err = 0
-        for w in WAVES if W <= K.WAVES_MAX_W else ():
-            wd, wb, wbi, wbd = K.banded_fwd_waves(a, a_len, b, b_len, bm, waves=w, **kw)
-            wf = K.banded_align_pairs(*dev, waves=w, **kw)
-            torch.cuda.synchronize()
-            werr = max(
-                int((wb - pbest).abs().max()), int((wbi - pbi).abs().max()),
-                int((wbd - pbd).abs().max()),
-                int(((wd != pdirs) & words[:, :, None]).sum()),
-                int((wf - pfused).abs().max()),
-            )
-            if werr:
-                raise AssertionError(
-                    f"banded_fwd_waves (waves {w}) != plain at LA={LA} W={W}: {werr}"
-                )
-            waves_err = max(waves_err, werr)
-            del wd, wf
-
+        # Times: the anti-diagonal body (where it takes W) and the
+        # row-scan body in turns (rows, diag, diag, rows), the traceback,
+        # the waves kernel. fwd_ms is the body banded_fwd picks.
         reps = 20 if LA * W <= 1 << 20 else 5
-        fwd_ms = cuda_ms(lambda: K.banded_fwd(a, a_len, b, b_len, bm, **kw), reps)
+        body = K.fwd_body(LA, W)
+        dirs, best, bi, bd = K.banded_fwd(a, a_len, b, b_len, bm, **kw)
+
+        def fwd(body):
+            return lambda: K._banded_fwd_body(body, a, a_len, b, b_len, bm, **kw)
+
+        both = W <= K.DIAG_W_LIMIT
+        turns = [cuda_ms(fwd(x), reps) for x in (("rows", "diag", "diag", "rows") if both else ("rows",) * 2)]
+        rows_ms = (turns[0] + turns[-1]) / 2
+        diag_ms = (turns[1] + turns[2]) / 2 if both else None
+        fwd_ms = diag_ms if body == "diag" else rows_ms
         tb_ms = cuda_ms(lambda: K.banded_tb(dirs, bi, bd, bm, LA=LA, W=W), reps)
         waves_ms = {
             w: cuda_ms(
@@ -289,32 +441,30 @@ def phase_kernels(sm_clock_mhz):
         fwd_bound, fwd_by, fwd_ops_ms, fwd_bytes_ms = bound_ms(
             cells * K.FWD_INT_OPS_PER_CELL, fwd_bytes, sm_clock_mhz
         )
-        # The same cells at the operations the kernel issues as written,
-        # a separate figure (not the bound).
-        fwd_issued_ms = fwd_ops_ms * K.FWD_INT_OPS_PER_CELL_ISSUED / K.FWD_INT_OPS_PER_CELL
         walked = int(bi.sum())
         tb_bound, tb_by, tb_ops_ms, tb_bytes_ms = bound_ms(
             walked * TB_OPS_PER_ROW, 4 * B * LA + 4 * walked + 16 * B, sm_clock_mhz
         )
         gcells = B * LA * W / ((fwd_ms + tb_ms) * 1e-3) / 1e9
         results[(LA, W)] = {
-            "LA": LA, "W": W, "B": B, "matched": n_matched,
-            "fwd_ms": fwd_ms, "tb_ms": tb_ms,
+            "LA": LA, "W": W, "B": B, "matched": n_matched, "body": body,
+            "fwd_ms": fwd_ms, "rows_ms": rows_ms, "diag_ms": diag_ms,
+            "fwd_turns_ms": turns, "tb_ms": tb_ms,
             "fwd_plain_ms": (t1 - t0) * 1e3, "tb_plain_ms": (t2 - t1) * 1e3,
             "fwd_bound_ms": fwd_bound, "fwd_bound_by": fwd_by,
             "fwd_ops_ms": fwd_ops_ms, "fwd_bytes_ms": fwd_bytes_ms,
-            "fwd_issued_ops_ms": fwd_issued_ms,
             "tb_bound_ms": tb_bound, "tb_bound_by": tb_by,
             "tb_ops_ms": tb_ops_ms, "tb_bytes_ms": tb_bytes_ms,
-            "gcells_per_s": gcells, "max_abs_err": max(fwd_err, tb_err, fused_err),
-            "waves_ms": waves_ms, "waves_max_abs_err": waves_err,
+            "gcells_per_s": gcells, "max_abs_err": max_err,
+            "waves_ms": waves_ms, "waves_max_abs_err": max_err,
         }
         log(
             f"kernel LA={LA} W={W} B={B}: equal (matches {n_matched}); "
-            f"fwd {fwd_ms:.3f} ms (plain {(t1 - t0) * 1e3:.1f} ms, bound "
-            f"{fwd_bound:.4f} ms by {fwd_by}, {fwd_bound / fwd_ms:.1%}; dirs and "
-            f"inputs {fwd_bytes_ms:.4f} ms at 3.35 TB/s; the kernel's issued "
-            f"operations {fwd_issued_ms:.4f} ms); "
+            f"fwd ({body}) {fwd_ms:.3f} ms; anti-diagonal body "
+            + (f"{diag_ms:.3f} ms ({fwd_bound / diag_ms:.1%} of bound)" if both else "-")
+            + f", row-scan body {rows_ms:.3f} ms ({fwd_bound / rows_ms:.1%}) "
+            f"(turns {', '.join(f'{x:.3f}' for x in turns)}; plain "
+            f"{(t1 - t0) * 1e3:.1f} ms; bound {fwd_bound:.4f} ms by {fwd_by}); "
             f"tb {tb_ms:.3f} ms (plain {(t2 - t1) * 1e3:.1f} ms, bound "
             f"{tb_bound:.4f} ms by {tb_by}, {tb_bound / tb_ms:.1%}); "
             f"{gcells:.2f} Gcells/s (B*LA*W / fwd+tb)"
@@ -323,37 +473,42 @@ def phase_kernels(sm_clock_mhz):
             log(
                 f"  banded_fwd_waves LA={LA} W={W} B={B} waves={w}: equal; {ms:.3f} ms "
                 f"(bound {fwd_bound:.4f} ms by {fwd_by}, {fwd_bound / ms:.1%}; "
-                f"banded_fwd {fwd_ms:.3f} ms, ratio {ms / fwd_ms:.2f})"
+                f"row-scan banded_fwd {rows_ms:.3f} ms, ratio {ms / rows_ms:.2f})"
             )
-        del dirs, pdirs, fused, pfused, pmj, mj
+        del dirs, pfused
     return results
 
 
 def phase_blocks_per_sm():
-    """Whether one W = 128 block per pair is bound by its own row latency
-    or by what the SM can issue: banded_fwd at 4096 x 128 with 1, 2 and 4
-    blocks per SM (B = 132, 264, 528), and banded_fwd_waves at the same
-    pairs. Equal times across B mean latency-bound blocks."""
+    """Whether a one-warp block is bound by its own latency or by what
+    the SM can issue: at 4096 x 128, both banded_fwd bodies and
+    banded_fwd_waves (waves 2) with 1, 2, 4, 8 and 16 blocks per SM
+    (up to 4 warps on each SM sub-partition). Times that stay flat as
+    the blocks grow mean latency-bound blocks."""
     from shasta_tpu_torch.ops import align_kernel as K
 
     LA, W = 4096, 128
     kw = dict(LA=LA, LB=LA, W=W, **SCORES)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     out = {}
-    for per_sm in (1, 2, 4):
+    for per_sm in (1, 2, 4, 8, 16):
         B = sms * per_sm
         host = make_batch(LA + B, B, LA, W)
         dev = [torch.from_numpy(x).cuda() for x in host]
         a, a_len, b, b_len, bm = K.prepare_inputs(*dev, LA=LA, LB=LA, W=W)
-        row = {"B": B, "fwd_ms": cuda_ms(lambda: K.banded_fwd(a, a_len, b, b_len, bm, **kw), 5)}
-        for w in WAVES:
-            row[f"waves{w}_ms"] = cuda_ms(
-                lambda: K.banded_fwd_waves(a, a_len, b, b_len, bm, waves=w, **kw), 5
+        row = {"B": B}
+        for body in ("diag", "rows"):
+            row[f"{body}_ms"] = cuda_ms(
+                lambda: K._banded_fwd_body(body, a, a_len, b, b_len, bm, **kw), 5
             )
+        row["waves2_ms"] = cuda_ms(
+            lambda: K.banded_fwd_waves(a, a_len, b, b_len, bm, waves=2, **kw), 5
+        )
         out[per_sm] = row
         log(
-            f"blocks per SM LA={LA} W={W} B={B}: banded_fwd {row['fwd_ms']:.3f} ms, "
-            + ", ".join(f"waves {w} {row[f'waves{w}_ms']:.3f} ms" for w in WAVES)
+            f"blocks per SM {per_sm} LA={LA} W={W} B={B}: banded_fwd anti-diagonal "
+            f"{row['diag_ms']:.3f} ms, row-scan {row['rows_ms']:.3f} ms, waves 2 "
+            f"{row['waves2_ms']:.3f} ms"
         )
     return out
 
@@ -482,23 +637,23 @@ def kernel_classes(trace, sm_clock_mhz, label):
     """Per (kernel, LA, W) launches, pairs, device ms, processed work and
     bound of one traced run; prints one line per class."""
     by_shape = {}
-    for name, LA, W, B, rows, start, end in trace:
-        e = by_shape.setdefault((name, LA, W), [0, 0, 0.0, 0, 0])
+    for name, body, LA, W, B, rows, start, end in trace:
+        e = by_shape.setdefault((name, body, LA, W), [0, 0, 0.0, 0, 0])
         e[0] += 1
         e[1] += B
         e[2] += start.elapsed_time(end)
         e[3] += int(rows.clamp(max=LA).sum()) * (W if name.startswith("banded_fwd") else 1)
         e[4] += B * LA * W
     shapes = []
-    for (name, LA, W), (n, B, ms, work, nominal) in sorted(by_shape.items()):
+    for (name, body, LA, W), (n, B, ms, work, nominal) in sorted(by_shape.items()):
         bound, by, _ops_ms, _bytes_ms = class_bound(name, LA, W, B, work, sm_clock_mhz)
         shapes.append({
-            "kernel": name, "LA": LA, "W": W, "launches": n, "pairs": B,
+            "kernel": name, "body": body, "LA": LA, "W": W, "launches": n, "pairs": B,
             "device_ms": ms, "work": work, "nominal_cells": nominal,
             "bound_ms": bound, "bound_by": by,
         })
         log(
-            f"  [{label}] {name} LA={LA} W={W}: {n} launches, {B} pairs, {ms:.2f} ms "
+            f"  [{label}] {name} ({body}) LA={LA} W={W}: {n} launches, {B} pairs, {ms:.2f} ms "
             f"(bound {bound:.4f} ms by {by}, {bound / ms:.1%})"
         )
     return shapes
@@ -584,6 +739,14 @@ def phase_real_size(work, sm_clock_mhz):
         raise AssertionError(f"the waves kernel ran at SHASTA_TORCH_WAVES unset: {launches}")
     if not any(c["LA"] >= 8192 for c in shapes):
         raise AssertionError("no launch at LA >= 8192 on the main path")
+    fwd_classes = [c for c in shapes if c["kernel"] == "banded_fwd"]
+    diag_ws = {c["W"] for c in fwd_classes if c["body"] == "diag"}
+    wrong = [c for c in fwd_classes if c["body"] != K.fwd_body(c["LA"], c["W"])]
+    if not {128, 512} <= diag_ws or wrong:
+        raise AssertionError(
+            f"a banded_fwd class ran another body than fwd_body picks, or no W 128 "
+            f"or 512 class ran the anti-diagonal body: {diag_ws}, {wrong}"
+        )
 
     # The run's own stage data, reloaded from its store.
     store = RunStore(run_dir, create=False)
@@ -691,7 +854,7 @@ def _align_params(cfg):
 
 def main() -> int:
     t_start = time.perf_counter()
-    sm_clock = phase_device_and_build()
+    sm_clock, sass = phase_device_and_build()
     kernels = phase_kernels(sm_clock)
     blocks = phase_blocks_per_sm()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
@@ -700,22 +863,25 @@ def main() -> int:
 
     # The kernel line reports each kernel at the listed shape whose
     # class took the most banded_fwd time on the main path.
-    fwd_ms = {
-        (s["LA"], s["W"]): s["device_ms"]
-        for s in real["shapes"] if s["kernel"] == "banded_fwd"
-    }
+    fwd_ms = {}
+    for c in real["shapes"]:
+        if c["kernel"] == "banded_fwd":
+            fwd_ms[c["LA"], c["W"]] = fwd_ms.get((c["LA"], c["W"]), 0.0) + c["device_ms"]
     rep = max(kernels, key=lambda k: (fwd_ms.get(k, 0.0), k[0] * k[1]))
     r = kernels[rep]
     shape = {"LA": rep[0], "W": rep[1], "B": r["B"]}
-    src = "shasta_tpu_torch/csrc/banded_align.cu"
+    csrc = "shasta_tpu_torch/csrc/"
+    src = csrc + "banded_align.cu"
     line = {"kernels": [
-        {"name": "banded_fwd", "route": "cuda", "source": src,
+        {"name": "banded_fwd", "route": "cuda",
+         "source": csrc + ("banded_fwd_diag.cu" if r["body"] == "diag" else "banded_align.cu"),
          "replaces": "shasta_tpu/ops/align_pallas.py:156,581",
          "launches": real["launches"]["banded_fwd"], "max_abs_err": r["max_abs_err"],
          "ms": r["fwd_ms"], "plain_ms": r["fwd_plain_ms"],
          "bound_ms": r["fwd_bound_ms"], "bound_by": r["fwd_bound_by"],
-         "library_ms": None, "shape": shape},
-        {"name": "banded_tb", "route": "cuda", "source": src,
+         "library_ms": None, "shape": dict(shape, body=r["body"]),
+         "row_scan_ms": r["rows_ms"]},
+        {"name": "banded_tb", "route": "cuda", "source": csrc + "banded_tb.cu",
          "replaces": "shasta_tpu/ops/align_pallas.py:296,714",
          "launches": real["launches"]["banded_tb"], "max_abs_err": r["max_abs_err"],
          "ms": r["tb_ms"], "plain_ms": r["tb_plain_ms"],
@@ -733,7 +899,7 @@ def main() -> int:
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(
-            {"card": card, "sm_clock_mhz": sm_clock,
+            {"card": card, "sm_clock_mhz": sm_clock, "diag_sass": sass,
              "kernels": [dict(v) for v in kernels.values()],
              "blocks_per_sm": blocks, "real_size": real,
              "seconds": time.perf_counter() - t_start},

@@ -1,26 +1,30 @@
-// Banded marker alignment (method 3) for NVIDIA Hopper (sm_90a).
+// banded_fwd's row-scan body and banded_fwd_waves, for NVIDIA Hopper
+// (sm_90a).
 //
-// Replaces the Pallas kernels of shasta_tpu/ops/align_pallas.py:
-//   banded_fwd  <- _kernel (forward half, :156-294) and
-//                  _fwd_chunked_kernel (:581)
-//   banded_tb   <- _kernel (traceback half, :296-337),
-//                  _tb_chunked_kernel (:714) and the traceback half of
-//                  _kernel_waves (:496-536)
+// Replaces the forward half of the Pallas kernels of
+// shasta_tpu/ops/align_pallas.py:
+//   banded_fwd (row-scan body) <- _kernel (forward half, :156-294) and
+//                                 _fwd_chunked_kernel (:581), for the
+//                                 launches that the anti-diagonal body
+//                                 (banded_fwd_diag.cu) does not take:
+//                                 W > DIAG_MAX_W (2048) or W > 2 LA
+//                                 (fwd_body, ops/align_kernel.py)
 //   banded_fwd_waves <- _kernel_waves (:340), forward half (see below)
 // The TPU needs a monolithic and a chunked regime because of its VMEM
-// budget; here one kernel pair serves every LA and every W up to 16384
-// (two rows of W ints in shared memory): the packed direction codes
-// always stream to device memory. A wider band is refused.
+// budget; here the packed direction codes always stream to device
+// memory, so one kernel serves every LA and every W up to 16384 (two
+// rows of W ints in shared memory). A wider band is refused. The
+// traceback is banded_tb.cu.
 //
 // What bounds it. The forward pass is a row-sequential DP: each row of
 // a pair's band depends on the previous row (diag/up) and, through the
 // LEFT gap, on the lanes before it in the same row. An interior band
-// cell needs ~17 int32 operations and writes 2 bits (this body issues
-// ~37 as written: per-cell index tests, the j == 0 clamp and the
-// end-cell test), so it is bound by integer issue (operations), not by
-// device memory: at (LA, W) = (4096, 512) the dirs are 0.5 MB per pair
-// against ~36 M needed operations. The row dependency also costs two
-// block barriers per row.
+// cell needs ~13 int32 operations and writes 2 bits, so the work is
+// bound by operations, not by device memory. On an H100 the body is
+// bound by latency instead: a row is one chain (the a and b loads, each
+// lane's in a divergent branch region of its own, the shared-memory
+// read of the previous row, the shuffle scan, the barrier), about 1,740
+// cycles per row at W = 128 (PERF.md).
 //
 // What the design does about it. One thread block per pair, each
 // thread owning K contiguous lanes, so most of a row's work is
@@ -33,49 +37,37 @@
 // tie-break (max score, then earliest row, then last column before
 // last row, then lowest lane). Direction codes are packed 16 rows to a
 // 32-bit word in registers and stored once every 16 rows. Rows past a
-// pair's a_len are skipped (no cell there is valid). The traceback runs
-// one thread per pair and resolves each row at the greatest non-LEFT
-// lane at or below the entry lane, reading the j == 0 cell as the
-// terminal; it starts at the best-end row, so it touches only the rows
-// of the path. No wgmma or TMA: a DP with a data-dependent walk has no
-// matrix product to feed them.
+// pair's a_len are skipped (no cell there is valid). Across warps the
+// block is what a wide band needs; up to DIAG_MAX_W (2048) lanes, where
+// LA is at least W / 2, the anti-diagonal body runs instead (its
+// launcher takes up to DIAG_W_LIMIT, 4096 lanes).
 //
 // banded_fwd_waves <- _kernel_waves (align_pallas.py:340), the forward
 // half. It computes what banded_fwd computes (dirs, best, bi, bd), for
 // WAVES = 2 or 4 pairs per thread block, W <= 4096 (K = 4 lanes per
-// thread). What bounds it is the same: integer issue, the same 17
-// operations per interior cell (FWD_INT_OPS_PER_CELL). What the
-// interleave is for: a row's longest dependent chain is the warp
-// shuffle scan (five dependent shuffles) and the pass over the warp
-// totals; with one pair per block, a block with few warps (W = 128 is
-// one warp) stalls on each step. Here every step of that chain is issued
-// for pair 0, 1, ... WAVES-1 before the next dependent step, so one
-// pair's latency is filled by the other pairs' independent work, as the
-// TPU kernel interleaves its sub-slabs' prefix-max steps; the block's
-// barriers are shared by its pairs. On an H100 this buys nothing: a
-// one-warp block is bound by what its warp can issue, not by latency, so
-// 2 or 4 pairs in one warp take 2 or 4 times as long (PERF.md), and
-// banded_fwd stays the default. Rows run to the largest row count
-// among the block's pairs; a pair past its own rows writes and updates
-// nothing. The traceback half of _kernel_waves is per pair and equal to
-// _kernel's, so banded_tb serves it.
+// thread). What bounds it is the same latency chain. What the
+// interleave is for: on the TPU, one sub-slab's prefix-max latency is
+// filled by the other sub-slabs' independent steps. Here every step of
+// the shuffle scan is issued for pair 0, 1, ... WAVES-1 before the next
+// dependent step, and the block's barriers are shared by its pairs; but
+// each pair's lane loop compiles to divergent branch regions with their
+// own loads, one pair after the other, so 2 or 4 pairs in one warp take
+// 2 or 4 times as long (PERF.md) and banded_fwd stays the default. Rows
+// run to the largest row count among the block's pairs; a pair past its
+// own rows writes and updates nothing. The traceback half of
+// _kernel_waves is per pair and equal to _kernel's, so banded_tb serves
+// it.
 //
 // Plain C interface; launched through ctypes on PyTorch's current
 // stream. Each launch function returns cudaGetLastError().
 
-#include <cuda_runtime.h>
-#include <limits.h>
-#include <stddef.h>
+#include "banded_common.cuh"
 
 namespace {
 
-constexpr int kNegInf = -(1 << 30);
-constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ bool better(int v1, int im1, int d1, int v2,
-                                       int im2, int d2) {
-  return v1 > v2 || (v1 == v2 && (im1 < im2 || (im1 == im2 && d1 < d2)));
-}
+using banded::better;
+using banded::kFull;
+using banded::kNegInf;
 
 // Forward DP. Grid: one block per pair. Block: T = ceil(W / K) threads
 // rounded up to a warp multiple; thread t owns lanes [t*K, t*K + K).
@@ -487,51 +479,6 @@ __global__ void __launch_bounds__(MAXT)
   }
 }
 
-// Traceback. One thread per pair. Codes: 0 DIAG match, 1 DIAG
-// mismatch, 2 UP, 3 LEFT; a j == 0 cell is the terminal (4).
-__global__ void banded_tb_kernel(const int* __restrict__ dirs,
-                                 const int* __restrict__ bi_in,
-                                 const int* __restrict__ bd_in,
-                                 const int* __restrict__ band_min, int B,
-                                 int LA, int W, int* __restrict__ mj) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= B) return;
-  const int nw16 = (LA + 15) >> 4;
-  const int* dp = dirs + (size_t)p * nw16 * W;
-  int* out = mj + (size_t)p * LA;
-  const int bi = bi_in[p];
-  const int bm = band_min[p];
-  for (int r = bi; r < LA; ++r) out[r] = -1;  // rows past the best end
-  int entry = bd_in[p];
-  int jb = bm + bi;  // j of lane 0 in row i
-  int i = bi;
-  for (; i >= 1 && entry >= 0; --i, --jb) {
-    const int* wp = dp + (size_t)((i - 1) >> 4) * W;
-    const int sh = 2 * ((i - 1) & 15);
-    int d = entry;
-    int code = 7;
-    for (; d >= 0; --d) {
-      if (jb + d == 0) {
-        code = 4;
-        break;
-      }
-      const int c = (wp[d] >> sh) & 3;
-      if (c != 3) {
-        code = c;
-        break;
-      }
-    }
-    out[i - 1] = (code == 0 && jb + d > 0) ? jb + d - 1 : -1;
-    if (d < 0) {
-      entry = -1;
-    } else {
-      entry = code <= 1 ? d : (code == 2 ? d + 1 : -1);
-      if (entry >= W) entry = -1;
-    }
-  }
-  for (; i >= 1; --i) out[i - 1] = -1;
-}
-
 template <int K>
 cudaError_t launch_fwd(const int* a, const int* b, const int* a_len,
                        const int* b_len, const int* band_min, int B, int LA,
@@ -608,11 +555,14 @@ extern "C" int banded_fwd_waves_launch(const int* a, const int* b,
                                         best, bi, bd, threads, s);
 }
 
-extern "C" int banded_fwd_launch(const int* a, const int* b, const int* a_len,
-                                 const int* b_len, const int* band_min, int B,
-                                 int LA, int LB, int W, int match,
-                                 int mismatch, int gap, int* dirs, int* best,
-                                 int* bi, int* bd, void* stream) {
+// The row-scan body at any W up to 16384 (banded_fwd where fwd_body
+// does not pick the anti-diagonal body: W > DIAG_MAX_W or W > 2 LA).
+extern "C" int banded_fwd_rows_launch(const int* a, const int* b,
+                                      const int* a_len, const int* b_len,
+                                      const int* band_min, int B, int LA,
+                                      int LB, int W, int match, int mismatch,
+                                      int gap, int* dirs, int* best, int* bi,
+                                      int* bd, void* stream) {
   if (B < 1 || LA < 1 || LB < 1 || W < 1 || W > 16384)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
@@ -621,15 +571,4 @@ extern "C" int banded_fwd_launch(const int* a, const int* b, const int* a_len,
                               match, mismatch, gap, dirs, best, bi, bd, s);
   return (int)launch_fwd<16>(a, b, a_len, b_len, band_min, B, LA, LB, W,
                              match, mismatch, gap, dirs, best, bi, bd, s);
-}
-
-extern "C" int banded_tb_launch(const int* dirs, const int* bi, const int* bd,
-                                const int* band_min, int B, int LA, int W,
-                                int* mj, void* stream) {
-  if (B < 1 || LA < 1 || W < 1) return (int)cudaErrorInvalidValue;
-  const int threads = 128;
-  banded_tb_kernel<<<(B + threads - 1) / threads, threads, 0,
-                     (cudaStream_t)stream>>>(dirs, bi, bd, band_min, B, LA, W,
-                                             mj);
-  return (int)cudaGetLastError();
 }

@@ -1,22 +1,29 @@
 """Batched banded marker alignment: CUDA kernels and their plain version.
 
-Counterpart of ``shasta_tpu/ops/align_pallas.py``. Three hand-written
-CUDA kernels (``csrc/banded_align.cu``) replace its four Pallas kernels:
+Counterpart of ``shasta_tpu/ops/align_pallas.py``. Hand-written CUDA
+kernels (``csrc/*.cu``) replace its four Pallas kernels:
 
 - ``banded_fwd`` replaces ``_kernel``'s forward half
-  (align_pallas.py:156) and ``_fwd_chunked_kernel`` (:581);
-- ``banded_tb`` replaces ``_kernel``'s traceback half (:296-337),
-  ``_tb_chunked_kernel`` (:714) and ``_kernel_waves``'s traceback half
-  (:496-536), which walks each pair as ``_kernel`` does;
+  (align_pallas.py:156) and ``_fwd_chunked_kernel`` (:581). It has two
+  bodies, picked by the launch's LA and band width (:func:`fwd_body`):
+  the anti-diagonal body (``csrc/banded_fwd_diag.cu``, one block per
+  pair, a warp per 128 lanes) where W <= ``DIAG_MAX_W`` and
+  W <= ``DIAG_W_PER_LA`` * LA, the row-scan body
+  (``csrc/banded_align.cu``) elsewhere;
+- ``banded_tb`` (``csrc/banded_tb.cu``, one warp per pair) replaces
+  ``_kernel``'s traceback half (:296-337), ``_tb_chunked_kernel`` (:714)
+  and ``_kernel_waves``'s traceback half (:496-536), which walks each
+  pair as ``_kernel`` does;
 - ``banded_fwd_waves`` replaces ``_kernel_waves``'s forward half (:340):
-  2 or 4 pairs per thread block, their scan steps interleaved. It runs
-  when ``SHASTA_TORCH_WAVES`` (or the ``waves`` argument) is 2 or 4; see
-  :func:`banded_align_pairs` for the rule.
+  the row-scan body with 2 or 4 pairs per thread block, their scan steps
+  interleaved. It runs when ``SHASTA_TORCH_WAVES`` (or the ``waves``
+  argument) is 2 or 4; see :func:`banded_align_pairs` for the rule.
 
 The TPU splits monolithic and chunked regimes because of its VMEM
 budget; the card has no such budget, so one kernel pair serves every
-LA and every W up to 16384 (a wider band raises). The forward kernel writes the 2-bit direction codes (16 rows to
-an int32 word) to device memory; the traceback kernel walks them back.
+LA and every W up to 16384 (a wider band raises). The forward kernel
+writes the 2-bit direction codes (16 rows to an int32 word) to device
+memory; the traceback kernel walks them back.
 
 Contract (the JAX wrapper's, align_pallas.py:948-1017):
 
@@ -61,45 +68,56 @@ D_MATCH, D_MISMATCH, UP, LEFT = 0, 1, 2, 3
 LAUNCHES = {"banded_fwd": 0, "banded_tb": 0, "banded_fwd_waves": 0}
 
 # Optional launch trace: when a caller sets this to a list, every CUDA
-# launch appends (name, LA, W, B, a_len, start, end) with CUDA events
-# recorded around it on the current stream (a_len: the clamped device
-# lengths, for the cells a launch really processes). None: no events.
+# launch appends (name, body, LA, W, B, rows, start, end) with CUDA
+# events recorded around it on the current stream. body: "diag" or
+# "rows" for the forward kernels, "warp" for the traceback; rows: the
+# clamped device lengths (a_len) of a forward launch, the best-end rows
+# (bi) of a traceback, for the work a launch really does. None: no
+# events.
 TRACE = None
 
 # int32 operations the forward DP needs on an interior band cell (the
-# bound's count): match compare and select 2, diag and up adds 2, their
-# max 1, the scan subtract 1, running max 1, the max with the carried-in
-# prefix 1, the add-back 1, the direction code (two compares, three
-# selects) 5, the 2-bit pack (shift, or) 2, one validity mask 1. The
-# end-cell accumulation and the j == 0 clamp touch O(LA + W) cells of a
-# pair and are left out, as are the per-row lane-range tests, which a
-# kernel can work out once per row.
-FWD_INT_OPS_PER_CELL = 17
-# What banded_fwd_kernel's per-lane row body issues as written: index
-# and band tests 7, b load and compare 3, diag/up/base 5, j == 0 clamp 2,
-# run and local prefix max 3, the scan's share per lane ~1, V and mask
-# 3, direction select 4, end-cell accumulation 7, 2-bit pack 2.
-FWD_INT_OPS_PER_CELL_ISSUED = 37
+# bound's count), with a DPX add-and-max (sm_90a's VIADDMNMX) counted as
+# one: match compare and select 2, the diag add 1, max(up + gap, diag) 1,
+# max(left + gap, base) 1 (the row's LEFT prefix max as a recurrence),
+# the direction code (two compares, three selects) 5, the 2-bit pack
+# (shift, or) 2, one validity mask 1. The end-cell accumulation and the
+# j == 0 clamp touch O(LA + W) cells of a pair and are left out, as are
+# the per-row lane-range tests, which a kernel can work out once per row.
+# The anti-diagonal body issues more per cell (chip_smoke.py phase 1
+# counts its SASS and checks that it issues no fewer).
+FWD_INT_OPS_PER_CELL = 13
 
 # Byte budget of the packed dirs of one forward launch.
 _DIRS_BYTES = 1 << 30
-# The widest band the forward kernel takes (banded_fwd_launch's limit).
+# The widest band the forward kernel takes (the row-scan body's limit).
 MAX_W = 16384
+# The widest band the anti-diagonal body takes (1024 threads x 4 lanes).
+DIAG_W_LIMIT = 4096
+# The anti-diagonal body pays a ramp of W / 2 pair steps on every pair,
+# so banded_fwd gives it a launch only where W <= DIAG_W_PER_LA * LA. In
+# one call on an H100 (PERF.md, chip_smoke.py phase 2) it took less time
+# than the row-scan body at every phase-2 shape with LA >= W / 2 (LA / W
+# from 1/2 to 31) and more at the two with LA = W / 4 (128 x 512 and
+# 512 x 2049).
+DIAG_W_PER_LA = 2
+# The widest band banded_fwd gives the anti-diagonal body: the widest of
+# the main path, at which it measured faster (LA 1024 x W 2048). No wider
+# band was measured on it at LA >= W / 2.
+DIAG_MAX_W = 2048
 # The widest band banded_fwd_waves takes (its K = 4 instantiation).
 WAVES_MAX_W = 4096
 
-_CSRC = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-    "csrc", "banded_align.cu",
-)
-_BUILD_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-    "build", "cuda",
-)
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_CSRC_DIR = os.path.join(_PKG, "csrc")
+_BUILD_DIR = os.path.join(_PKG, "build", "cuda")
 _SO = os.path.join(_BUILD_DIR, "libbanded_align.so")
+_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3"]
 
 _lib = None
 _lock = threading.Lock()
+# ptxas's report (registers, spills) of the last build, per source.
+PTXAS_REPORT = {}
 
 
 # ---------------------------------------------------------------------------
@@ -117,47 +135,89 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def kernel_sources() -> tuple[list[str], list[str]]:
+    """The CUDA sources under csrc/, sorted: the ``*.cu`` files (one
+    object each) and the ``*.cuh`` headers they include."""
+    names = sorted(os.listdir(_CSRC_DIR))
+    cu = [os.path.join(_CSRC_DIR, n) for n in names if n.endswith(".cu")]
+    cuh = [os.path.join(_CSRC_DIR, n) for n in names if n.endswith(".cuh")]
+    return cu, cuh
+
+
+def build_commands(nvcc: str, out: str) -> tuple[list[list[str]], list[str]]:
+    """The nvcc command lines that build the library ``out``: one
+    compile per ``*.cu`` (run together, each printing ptxas's register
+    and spill report), then the link of their objects."""
+    cu, _ = kernel_sources()
+    objs = [f"{out}.{os.path.basename(c)[:-3]}.o" for c in cu]
+    compiles = [
+        [nvcc, *_NVCC_FLAGS, "-Xptxas", "-v", "-Xcompiler", "-fPIC", "-c", "-o", o, c]
+        for c, o in zip(cu, objs)
+    ]
+    link = [nvcc, *_NVCC_FLAGS, "-shared", "-o", out, *objs]
+    return compiles, link
+
+
+def library_stale(so: str = None) -> bool:
+    """True when the library is missing or older than any source."""
+    so = so or _SO
+    if not os.path.exists(so):
+        return True
+    cu, cuh = kernel_sources()
+    return os.path.getmtime(so) < max(os.path.getmtime(f) for f in cu + cuh)
+
+
+def _run_all(cmds: list[list[str]]) -> list[str]:
+    """Run the commands at once; their stderr, or raise if any failed."""
+    procs = [
+        subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for c in cmds
+    ]
+    errs = [proc.communicate()[1] for proc in procs]
+    failed = [
+        f"{' '.join(c)} ({proc.returncode}):\n{err}"
+        for c, proc, err in zip(cmds, procs, errs) if proc.returncode != 0
+    ]
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return errs
+
+
 def build_kernels(force: bool = False) -> float:
-    """Compile csrc/banded_align.cu for sm_90a into the git-ignored
-    build directory and load it. Returns the build seconds (0 when the
-    library was already built from the current source)."""
+    """Compile every csrc/*.cu for sm_90a (one nvcc each, all at once),
+    link them into the git-ignored build directory and load the
+    library. Returns the build seconds (0 when the library was already
+    built from the current sources)."""
     global _lib
     with _lock:
         t0 = time.perf_counter()
-        stale = not os.path.exists(_SO) or (
-            os.path.getmtime(_SO) < os.path.getmtime(_CSRC)
-        )
-        if force or stale:
+        if force or library_stale():
             os.makedirs(_BUILD_DIR, exist_ok=True)
             tmp = f"{_SO}.{os.getpid()}.tmp"
-            proc = subprocess.run(
-                [
-                    _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-                    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-                    "-o", tmp, _CSRC,
-                ],
-                capture_output=True, text=True,
-            )
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}):\n{proc.stderr}"
+            compiles, link = build_commands(_nvcc(), tmp)
+            try:
+                errs = _run_all(compiles)
+                _run_all([link])
+                PTXAS_REPORT.clear()
+                PTXAS_REPORT.update(
+                    (os.path.basename(c[-1]), e) for c, e in zip(compiles, errs)
                 )
+            finally:
+                for c in compiles:  # [..., "-o", object, source]
+                    if os.path.exists(c[-2]):
+                        os.remove(c[-2])
             os.replace(tmp, _SO)
             _lib = None
         if _lib is None:
             lib = ctypes.CDLL(_SO)
             vp, ci = ctypes.c_void_p, ctypes.c_int
-            lib.banded_fwd_launch.argtypes = [
-                vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci,
-                vp, vp, vp, vp, vp,
-            ]
-            lib.banded_fwd_launch.restype = ci
-            lib.banded_tb_launch.argtypes = [vp, vp, vp, vp, ci, ci, ci, vp, vp]
+            fwd_args = [vp] * 5 + [ci] * 7 + [vp] * 5
+            for name in ("banded_fwd_diag_launch", "banded_fwd_rows_launch"):
+                getattr(lib, name).argtypes = fwd_args
+                getattr(lib, name).restype = ci
+            lib.banded_tb_launch.argtypes = [vp] * 4 + [ci] * 3 + [vp] * 2
             lib.banded_tb_launch.restype = ci
-            lib.banded_fwd_waves_launch.argtypes = [
-                vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci,
-                vp, vp, vp, vp, vp,
-            ]
+            lib.banded_fwd_waves_launch.argtypes = [vp] * 5 + [ci] * 8 + [vp] * 5
             lib.banded_fwd_waves_launch.restype = ci
             _lib = lib
         return time.perf_counter() - t0
@@ -186,12 +246,12 @@ def _trace_start():
     return ev
 
 
-def _trace_end(start, name, LA, W, B, rows) -> None:
+def _trace_end(start, name, body, LA, W, B, rows) -> None:
     if start is None:
         return
     end = torch.cuda.Event(enable_timing=True)
     end.record()
-    TRACE.append((name, LA, W, B, rows, start, end))
+    TRACE.append((name, body, LA, W, B, rows, start, end))
 
 
 # ---------------------------------------------------------------------------
@@ -204,23 +264,39 @@ def n_words(LA: int) -> int:
     return (LA + 15) // 16
 
 
+def fwd_body(LA: int, W: int) -> str:
+    """The body banded_fwd runs on a launch of LA rows and band width W:
+    "diag" (anti-diagonal) where W <= DIAG_MAX_W and
+    W <= DIAG_W_PER_LA * LA, "rows" (row scan) elsewhere."""
+    return "diag" if W <= min(DIAG_MAX_W, DIAG_W_PER_LA * LA) else "rows"
+
+
 def banded_fwd(a, a_len, b, b_len, band_min, *, LA, LB, W, match, mismatch, gap):
     """Forward DP on prepared (clamped) inputs. Returns
     (dirs (B, ceil(LA/16), W) int32, best, bi, bd (B,) int32). Rows
     beyond a pair's a_len are not written (the traceback never reads
-    them)."""
+    them). On CUDA tensors it runs the body :func:`fwd_body` picks."""
+    kw = dict(LA=LA, LB=LB, W=W, match=match, mismatch=mismatch, gap=gap)
     if a.device.type != "cuda":
-        return banded_fwd_plain(
-            a, a_len, b, b_len, band_min,
-            LA=LA, LB=LB, W=W, match=match, mismatch=mismatch, gap=gap,
-        )
+        return banded_fwd_plain(a, a_len, b, b_len, band_min, **kw)
+    return _banded_fwd_body(fwd_body(LA, W), a, a_len, b, b_len, band_min, **kw)
+
+
+def _banded_fwd_body(
+    body, a, a_len, b, b_len, band_min, *, LA, LB, W, match, mismatch, gap
+):
+    """banded_fwd's launch of one body, "diag" (W <= DIAG_W_LIMIT) or
+    "rows" (W <= MAX_W), on CUDA tensors; both give the same outputs.
+    chip_smoke.py and the card tests run both bodies through it."""
     _check_cuda(a, a_len, b, b_len, band_min)
-    if W > MAX_W:
+    limit = DIAG_W_LIMIT if body == "diag" else MAX_W
+    if body not in ("diag", "rows") or W > limit:
         raise ValueError(
-            f"banded_fwd takes W <= {MAX_W} (two rows in shared memory); got {W}"
+            f"banded_fwd's {body!r} body takes W <= {limit}; got W={W}"
         )
     return _launch_fwd(
-        "banded_fwd", a, a_len, b, b_len, band_min, LA, LB, W, match, mismatch, gap
+        "banded_fwd", body, a, a_len, b, b_len, band_min, LA, LB, W,
+        match, mismatch, gap,
     )
 
 
@@ -243,15 +319,23 @@ def banded_fwd_waves(
             f"got W={W} waves={waves}"
         )
     return _launch_fwd(
-        "banded_fwd_waves", a, a_len, b, b_len, band_min, LA, LB, W,
+        "banded_fwd_waves", "rows", a, a_len, b, b_len, band_min, LA, LB, W,
         match, mismatch, gap, waves,
     )
 
 
-def _launch_fwd(name, a, a_len, b, b_len, band_min, LA, LB, W, match, mismatch,
-                gap, *extra):
-    """Allocate the forward outputs and launch kernel ``name`` through
-    its C launcher, which takes ``extra`` after the scores."""
+_FWD_LAUNCHERS = {
+    ("banded_fwd", "diag"): "banded_fwd_diag_launch",
+    ("banded_fwd", "rows"): "banded_fwd_rows_launch",
+    ("banded_fwd_waves", "rows"): "banded_fwd_waves_launch",
+}
+
+
+def _launch_fwd(name, body, a, a_len, b, b_len, band_min, LA, LB, W, match,
+                mismatch, gap, *extra):
+    """Allocate the forward outputs and launch kernel ``name``'s
+    ``body`` through its C launcher, which takes ``extra`` after the
+    scores."""
     B = a.shape[0]
     dev = a.device
     dirs = torch.empty((B, n_words(LA), W), dtype=torch.int32, device=dev)
@@ -263,18 +347,18 @@ def _launch_fwd(name, a, a_len, b, b_len, band_min, LA, LB, W, match, mismatch,
     lib = _load()
     stream = torch.cuda.current_stream(dev).cuda_stream
     ev = _trace_start()
-    rc = getattr(lib, f"{name}_launch")(
+    rc = getattr(lib, _FWD_LAUNCHERS[name, body])(
         a.data_ptr(), b.data_ptr(), a_len.data_ptr(), b_len.data_ptr(),
         band_min.data_ptr(), B, LA, LB, W, match, mismatch, gap, *extra,
         dirs.data_ptr(), best.data_ptr(), bi.data_ptr(), bd.data_ptr(), stream,
     )
     if rc != 0:
         raise RuntimeError(
-            f"{name} launch failed (cudaError {rc}) at "
+            f"{name} ({body}) launch failed (cudaError {rc}) at "
             f"B={B} LA={LA} LB={LB} W={W} {extra}"
         )
     LAUNCHES[name] += 1
-    _trace_end(ev, name, LA, W, B, a_len)
+    _trace_end(ev, name, body, LA, W, B, a_len)
     return dirs, best, bi, bd
 
 
@@ -300,7 +384,7 @@ def banded_tb(dirs, bi, bd, band_min, *, LA, W):
             f"banded_tb launch failed (cudaError {rc}) at B={B} LA={LA} W={W}"
         )
     LAUNCHES["banded_tb"] += 1
-    _trace_end(ev, "banded_tb", LA, W, B, bi)
+    _trace_end(ev, "banded_tb", "warp", LA, W, B, bi)
     return mj
 
 

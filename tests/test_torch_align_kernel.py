@@ -238,6 +238,52 @@ def test_import_needs_no_nvcc_or_triton():
     assert out.stdout.strip() == "ok"
 
 
+def test_build_takes_every_source(tmp_path, monkeypatch):
+    """build_kernels compiles every csrc/*.cu (one nvcc each, for
+    sm_90a) and links their objects, and rebuilds when any *.cu or
+    *.cuh is newer than the library: checked on the command lines and
+    file times, without calling nvcc."""
+    cu, cuh = K.kernel_sources()
+    assert [os.path.basename(c) for c in cu] == [
+        "banded_align.cu", "banded_fwd_diag.cu", "banded_tb.cu"
+    ]
+    assert [os.path.basename(h) for h in cuh] == ["banded_common.cuh"]
+    compiles, link = K.build_commands("nvcc", str(tmp_path / "lib.so"))
+    assert [c[-1] for c in compiles] == cu
+    for c in compiles:
+        assert "arch=compute_90a,code=sm_90a" in c and "-c" in c
+    assert "-shared" in link and link[-len(cu):] == [c[-2] for c in compiles]
+
+    src = tmp_path / "csrc"
+    src.mkdir()
+    for name in ("k.cu", "h.cuh"):
+        (src / name).write_text("")
+        os.utime(src / name, (1000, 1000))
+    monkeypatch.setattr(K, "_CSRC_DIR", str(src))
+    so = tmp_path / "lib.so"
+    assert K.library_stale(str(so))  # not built yet
+    so.write_text("")
+    os.utime(so, (2000, 2000))
+    assert not K.library_stale(str(so))
+    os.utime(src / "h.cuh", (3000, 3000))  # a header changed
+    assert K.library_stale(str(so))
+
+
+@pytest.mark.parametrize(
+    "LA,W,body",
+    [
+        (4096, 128, "diag"), (64, 128, "diag"), (512, 512, "diag"),
+        (1024, 2048, "diag"), (128, 512, "rows"), (512, 2048, "rows"),
+        (1, 128, "rows"), (4096, 2049, "rows"), (8192, 8192, "rows"),
+    ],
+)
+def test_forward_body_by_la_and_width(LA, W, body):
+    """banded_fwd runs the anti-diagonal body where its ramp of W / 2
+    pair steps is at most the launch's LA and W <= DIAG_MAX_W, and the
+    row-scan body elsewhere."""
+    assert K.fwd_body(LA, W) == body
+
+
 def test_cuda_device_without_card_raises(tmp_path):
     """device='cuda' with no card raises; nothing falls back to the CPU."""
     if torch.cuda.is_available():

@@ -17,7 +17,7 @@ import torch
 from shasta_tpu_torch.ops import align as A
 from shasta_tpu_torch.ops import align_kernel as K
 from shasta_tpu_torch.utils import synth
-from tests.torch_common import make_batch
+from tests.torch_common import edge_batch, gap_batch, make_batch
 
 KW = dict(match=6, mismatch=-1, gap=-1)
 
@@ -48,6 +48,59 @@ def test_kernels_match_plain_on_card(card, LA, W):
     assert int(got[:, 0].sum()) > 0  # the batch has real alignments
     assert K.LAUNCHES["banded_fwd"] > before["banded_fwd"]
     assert K.LAUNCHES["banded_tb"] > before["banded_tb"]
+
+
+def fwd_tb_errors(args, LA, W):
+    """Each banded_fwd body that takes W against banded_fwd_plain (every
+    dirs word of a processed row, best, bi, bd), banded_tb against
+    banded_tb_plain on the plain dirs, and the fused output against
+    banded_align_pairs_plain: the names of the outputs that differ."""
+    kw = dict(LA=LA, LB=LA, W=W, **KW)
+    pa, pal, pb, pbl, pbm = K.prepare_inputs(*args, LA=LA, LB=LA, W=W)
+    pdirs, pbest, pbi, pbd = K.banded_fwd_plain(pa, pal, pb, pbl, pbm, **kw)
+    rows = (torch.arange(K.n_words(LA), device=pa.device)[None, :] * 16) < pal[:, None]
+    bad = []
+    for body in ("diag", "rows") if W <= K.DIAG_W_LIMIT else ("rows",):
+        dirs, best, bi, bd = K._banded_fwd_body(body, pa, pal, pb, pbl, pbm, **kw)
+        if bool(((dirs != pdirs) & rows[:, :, None]).any()):
+            bad.append(f"{body} dirs")
+        for name, x, y in (("best", best, pbest), ("bi", bi, pbi), ("bd", bd, pbd)):
+            if not torch.equal(x, y):
+                bad.append(f"{body} {name}")
+    mj = K.banded_tb(pdirs, pbi, pbd, pbm, LA=LA, W=W)
+    if not torch.equal(mj, K.banded_tb_plain(pdirs, pbi, pbd, pbm, LA=LA, W=W)):
+        bad.append("tb")
+    if not torch.equal(K.banded_align_pairs(*args, **kw), K.banded_align_pairs_plain(*args, **kw)):
+        bad.append("fused")
+    return bad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "LA,W", [(256, 33), (128, 288), (256, 511), (128, 2049), (1, 128), (17, 512)]
+)
+def test_forward_bodies_match_plain_on_card(card, LA, W):
+    """banded_fwd's anti-diagonal body (W <= DIAG_W_LIMIT) and row-scan
+    body at widths that are not a multiple of 32 and at LA 1 and 17,
+    and banded_tb, word for word against the plain version."""
+    a, a_len, b, b_len, bm = make_batch(LA + W, B=8, LA=LA, LB=LA, W=W)
+    args = [torch.from_numpy(x).to(card) for x in (a, a_len, b, b_len, bm)]
+    assert fwd_tb_errors(args, LA, W) == []
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [128, 512])
+@pytest.mark.parametrize("batch", ["edge", "gap"])
+def test_special_batches_match_plain_on_card(card, batch, W):
+    """The edge-case batch (empty pairs, length-1 sequences, bands at
+    both clamp limits, a full-length identical pair) and the long-gap
+    batch (traceback paths across 32-lane chunks, both ways) on both
+    forward bodies and banded_tb, word for word against the plain
+    version."""
+    LA = 128 if batch == "edge" else 256
+    host = edge_batch(LA, W) if batch == "edge" else gap_batch(LA, W)
+    args = [torch.from_numpy(x).to(card) for x in host]
+    assert fwd_tb_errors(args, LA, W) == []
 
 
 @pytest.mark.cuda

@@ -45,3 +45,62 @@ def make_batch(seed, B=8, LA=128, LB=128, W=128, alpha=50):
     bm[2] = LB + 1  # band wholly right of the matrix
     bm[3] = -(LA + W)  # band at the clamp limit
     return a, a_len, b, b_len, bm
+
+
+def edge_batch(LA=128, W=128):
+    """The batch of test_align_pallas.py::test_edge_cases_match_jnp_kernel
+    (LA = LB): empty pairs, length-1 sequences, bands at both clamp
+    limits, a full-length identical pair and padding rows."""
+    B = 8
+    rng = np.random.default_rng(9)
+    a = np.full((B, LA), -1, np.int32)
+    b = np.full((B, LA), -2, np.int32)
+    a_len = np.zeros(B, np.int32)
+    b_len = np.zeros(B, np.int32)
+    bm = np.zeros(B, np.int32)
+    g = rng.integers(0, 30, 300).astype(np.int32)
+    b[0, :50] = g[:50]
+    b_len[0] = 50
+    a[1, :50] = g[:50]
+    a_len[1] = 50
+    a[2, 0] = b[2, 0] = 7
+    a_len[2] = b_len[2] = 1
+    for t, band in ((3, -(LA + W)), (4, LA)):
+        a[t, :60] = b[t, :60] = g[:60]
+        a_len[t] = b_len[t] = 60
+        bm[t] = band
+    a[5] = b[5] = g[:LA]
+    a_len[5] = b_len[5] = LA
+    return a, a_len, b, b_len, bm
+
+
+def gap_batch(LA=256, W=128, seed=11):
+    """Pairs whose alignments carry long gaps, so that a traceback path
+    crosses 32-lane chunks of the band both ways: b with an insertion of
+    length L (a run of LEFT moves, walked back towards lane 0) and a
+    with an insertion of length L (a run of UP moves, walked back
+    towards lane W - 1), L in {40, 70}, the band placed so that the path
+    starts near one end of it."""
+    rng = np.random.default_rng(seed)
+    B = 8
+    a = np.full((B, LA), -1, np.int32)
+    b = np.full((B, LA), -2, np.int32)
+    a_len = np.zeros(B, np.int32)
+    b_len = np.zeros(B, np.int32)
+    bm = np.zeros(B, np.int32)
+    n = LA - 80
+    for t in range(B):
+        L = (40, 70)[t % 2]
+        g = rng.integers(0, 1000, n).astype(np.int32)
+        ins = rng.integers(1000, 2000, L).astype(np.int32)
+        cut = n // 3 + 7 * t
+        long_ = np.concatenate([g[:cut], ins, g[cut:]])
+        if t < B // 2:  # insertion in b: j - i grows by L
+            a[t, :n], b[t, : n + L] = g, long_
+            a_len[t], b_len[t] = n, n + L
+            bm[t] = -(W // 8) - (t % 3)
+        else:  # insertion in a: j - i falls by L
+            a[t, : n + L], b[t, :n] = long_, g
+            a_len[t], b_len[t] = n + L, n
+            bm[t] = -L - (W // 8) + (t % 3)
+    return a, a_len, b, b_len, bm
