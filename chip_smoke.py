@@ -7,34 +7,38 @@ no result line):
 
 1. Device and build: the card's name and power limit, then the CUDA
    kernels built from shasta_tpu_torch/csrc with nvcc (the native host
-   library builds beside it, in parallel); ptxas's registers and spills,
-   and the int32 instructions the anti-diagonal body issues per band
-   cell (its SASS), which must be no fewer than the bound counts.
+   library builds beside it, in parallel); ptxas's registers and spills
+   (any spill of the anti-diagonal body fails), and the int32
+   instructions the anti-diagonal body issues per band cell (its SASS)
+   at 1, 2 and 4 pairs per warp, which must be no fewer than the bound
+   counts.
 2. Kernels against their plain PyTorch version on the card, at the
-   main path's (LA, W) classes, odd widths, LA 1 and 17, and the
-   edge-case batch: exact int32 equality of each kernel's output and of
-   the fused (B, 16 + LA) result. banded_fwd runs both its bodies where
+   main path's (LA, W) classes, a phase-1 launch of 16,384 small pairs,
+   odd widths, LA 1 and 17, the edge-case, long-gap and mixed-length
+   batches: exact int32 equality of each kernel's output and of the
+   fused (B, 16 + LA) result. banded_fwd runs both its bodies where
    W <= DIAG_W_LIMIT (the anti-diagonal body and the row-scan body, timed
    in turns in this call), banded_fwd_waves runs at waves 2 and 4
-   wherever W <= 4096; times, Gcells/s and the least time the card could
-   take (the bound). Then both forward bodies and the waves kernel at 1
-   to 16 blocks per SM.
+   wherever fwd_body gives the anti-diagonal body; times, Gcells/s and
+   the least time the card could take (the bound). Then both forward
+   bodies and the waves kernel at 1 to 16 blocks per SM.
 3. The golden input (tests/golden/mode0_stage_hashes.json's) through the
    whole assemble command (shasta_tpu_torch.__main__.main) on the card,
-   on the card with SHASTA_TORCH_WAVES=2, and on the CPU: all eight
-   stage hashes equal the pinned values, the summary's counts equal
-   tests/golden/mode0_metrics.json, and the FASTA and GFA files are
-   byte-equal across the three runs.
+   on the card with SHASTA_TORCH_WAVES=2 and =4, and on the CPU: all
+   eight stage hashes equal the pinned values, the summary's counts
+   equal tests/golden/mode0_metrics.json, and the FASTA and GFA files
+   are byte-equal across the four runs.
 4. Mode 0 end to end at a real size on the card (run_assembly): a 5 Mb
    random genome, ONT-like reads at 25x, Nanopore-May2022 verbatim. The
    launch counts are reset just before the run and read just after, and
    the launch trace must show every banded_fwd class on the body
    fwd_body picks, the W 128 and 512 classes with LA >= W / 2 on the
-   anti-diagonal body; 256 kept pairs are re-aligned with the plain
+   anti-diagonal body; 128 kept pairs are re-aligned with the plain
    version on the card and must agree. Then computeAlignments runs
-   again on the run's own Markers and AlignmentCandidates with
-   SHASTA_TORCH_WAVES=2 (the waves kernel's main path) and must give the
-   same Alignments hash.
+   twice more on the run's own Markers and AlignmentCandidates, with
+   SHASTA_TORCH_WAVES unset and =2 (the waves kernel's main path): both
+   give the run's Alignments hash, and each class's forward time under
+   waves 2 prints beside the default's, with its pairs per launch.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -83,7 +87,8 @@ WAVES = (2, 4)
 SCORES = dict(match=6, mismatch=-1, gap=-1)
 # (LA = LB, W, pairs): phase 1's class, the phase-2 classes (4096 x 128
 # takes the most kernel time on the real-size run), a wide band, the
-# ultra-long classes, a band past 4096 lanes (the row-scan body's
+# ultra-long classes, a phase-1 launch at _batch_plan's 16,384 pairs, a
+# band past 4096 lanes (the row-scan body's
 # 16-lanes-per-thread instantiation, which a max_band above 2047
 # reaches), widths that are not a multiple of 32 (the anti-diagonal
 # body's phantom lanes at K = 2, 16, 16; the row-scan body just past
@@ -92,7 +97,7 @@ SHAPES = [
     (128, 512, 2048), (2048, 128, 512), (4096, 512, 256), (1024, 2048, 128),
     (4096, 128, 256), (8192, 512, 64), (32768, 128, 64), (512, 8192, 8),
     (1024, 33, 256), (1024, 288, 256), (2048, 511, 128), (512, 2049, 32),
-    (1, 128, 64), (17, 512, 64),
+    (1, 128, 64), (17, 512, 64), (256, 128, 16384),
 ]
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 INT32_LANES_PER_SM = 64  # Hopper SM: 4 partitions x 16 INT32 units
@@ -146,37 +151,48 @@ def phase_device_and_build():
         + f", one nvcc each, sm_90a); native host library "
         f"{'ok' if native_ok[0] else 'unavailable'}; wall {time.perf_counter() - t0:.2f}s"
     )
+    ptxas = {}
     for src, report in K.PTXAS_REPORT.items():
         fn = None
         for ln in report.splitlines():
             m = re.search(r"Compiling entry function '.*?(banded_[a-z_]+kernel)(\w*)'", ln)
             if m:
-                fn = m.group(1) + "<" + ",".join(re.findall(r"Li(\d+)E", m.group(2))) + ">"
+                fn = m.group(1) + "<" + ",".join(re.findall(r"L[ib](\d+)E", m.group(2))) + ">"
             elif fn and ("registers" in ln or "spill" in ln):
                 log(f"ptxas {src} {fn}: {ln.split(':', 1)[-1].strip()}")
-    sass = diag_sass_ops_per_cell()
-    log(
-        f"sass banded_fwd_diag_kernel<4,false>: {sass['per_cell']:.2f} int32 "
-        f"instructions issued per band cell ({sass['int_ops']} per pair step of "
-        f"4 cells: {sass['by_opcode']}); the bound counts "
-        f"{K.FWD_INT_OPS_PER_CELL}"
-    )
-    if sass["per_cell"] < K.FWD_INT_OPS_PER_CELL:
-        raise AssertionError(
-            "the anti-diagonal body issues fewer int32 instructions per cell than "
-            "FWD_INT_OPS_PER_CELL: the bound is not a lower bound"
+                e = ptxas.setdefault(f"{src} {fn}", {})
+                if r := re.search(r"Used (\d+) registers", ln):
+                    e["registers"] = int(r.group(1))
+                if r := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln):
+                    e["spill_bytes"] = int(r.group(1)) + int(r.group(2))
+    sass = {}
+    for P in (1, 2, 4):
+        sass[P] = diag_sass_ops_per_cell(P)
+        log(
+            f"sass banded_fwd_diag_kernel<4,false,{P}>: {sass[P]['per_cell']:.2f} int32 "
+            f"instructions issued per band cell ({sass[P]['int_ops']} per pair step of "
+            f"{4 * P} cells: {sass[P]['by_opcode']}); the bound counts "
+            f"{K.FWD_INT_OPS_PER_CELL}"
         )
+        if sass[P]["per_cell"] < K.FWD_INT_OPS_PER_CELL:
+            raise AssertionError(
+                "the anti-diagonal body issues fewer int32 instructions per cell than "
+                "FWD_INT_OPS_PER_CELL: the bound is not a lower bound"
+            )
+    spilled = [k for k, e in ptxas.items() if "banded_fwd_diag.cu" in k and e.get("spill_bytes")]
+    if spilled:
+        raise AssertionError(f"the anti-diagonal body spills registers: {spilled}")
     sm_clock_mhz = float(smi("clocks.max.sm").split()[0])
-    return sm_clock_mhz, sass
+    return sm_clock_mhz, {"sass": sass, "ptxas": ptxas}
 
 
-def diag_sass_ops_per_cell():
-    """The int32 instructions banded_fwd_diag_kernel<4, false> (one
-    warp, W 65 to 128) issues per band cell, from cuobjdump -sass of the
-    built library: its pair-step loop (the backward branch around the
-    input slide's SHFL.IDX; 4 cells per thread), without the regions a
-    forward branch inside it skips (the 16-row flush stores) and without
-    the NOT_INT_OPS and U* opcodes."""
+def diag_sass_ops_per_cell(P):
+    """The int32 instructions banded_fwd_diag_kernel<4, false, P> (one
+    warp, W 65 to 128, P pairs) issues per band cell, from cuobjdump -sass
+    of the built library: its pair-step loop (the backward branch around
+    the input slide's SHFL.IDX; 4 cells per thread and pair), without the
+    regions a forward branch inside it skips (the 16-row flush stores)
+    and without the NOT_INT_OPS and U* opcodes."""
     from shasta_tpu_torch.ops import align_kernel as K
 
     tool = os.path.join(os.path.dirname(K._nvcc()), "cuobjdump")
@@ -185,7 +201,7 @@ def diag_sass_ops_per_cell():
     ).stdout
     fn = next(
         f for f in sass.split("Function : ")[1:]
-        if "banded_fwd_diag_kernelILi4ELb0E" in f.split("\n", 1)[0]
+        if f"banded_fwd_diag_kernelILi4ELb0ELi{P}E" in f.split("\n", 1)[0]
     )
     ins = [
         (int(a, 16), re.sub(r"^@!?U?P[T\d]+\s+", "", x.strip()))
@@ -207,7 +223,7 @@ def diag_sass_ops_per_cell():
     ]
     ops = [o for o in ops if o not in NOT_INT_OPS and not o.startswith("U")]
     by_opcode = {o: ops.count(o) for o in sorted(set(ops), key=ops.count, reverse=True)}
-    return {"int_ops": len(ops), "per_cell": len(ops) / 4, "by_opcode": by_opcode}
+    return {"int_ops": len(ops), "per_cell": len(ops) / (4 * P), "by_opcode": by_opcode}
 
 
 # ---------------------------------------------------------------------------
@@ -299,6 +315,31 @@ def gap_batch(LA, W, seed=11):
     return a, a_len, b, b_len, bm
 
 
+def mixed_batch(LA, W, B=13, seed=21):
+    """tests/torch_common.py:mixed_batch: pairs of very different lengths
+    side by side (a_len 0, 1, 2, 17, LA // 2, LA, LA + 40; b_len within 5
+    of it), as the waves kernel puts them in one warp."""
+    rng = np.random.default_rng(seed)
+    a = np.full((B, LA), -1, np.int32)
+    b = np.full((B, LA), -2, np.int32)
+    a_len = np.zeros(B, np.int32)
+    b_len = np.zeros(B, np.int32)
+    bm = np.zeros(B, np.int32)
+    cycle = [0, 1, 2, 17, LA // 2, LA, LA + 40]
+    for t in range(B):
+        g = rng.integers(0, 50, 2 * LA).astype(np.int32)
+        la = cycle[t % len(cycle)]
+        lb = min(LA, max(1, la + int(rng.integers(-5, 6))))
+        n = min(la, LA)
+        a[t, :n] = g[:n]
+        b[t, :lb] = g[:lb]
+        sub = rng.random(n) < 0.1
+        a[t, :n][sub] = rng.integers(0, 50, int(sub.sum()))
+        a_len[t], b_len[t] = la, lb
+        bm[t] = -(W // 2) + int(rng.integers(-(W // 8), W // 8 + 1))
+    return a, a_len, b, b_len, bm
+
+
 def cuda_ms(fn, reps):
     fn()
     torch.cuda.synchronize()
@@ -344,7 +385,8 @@ def check_kernels(host, LA, W):
     """Every kernel against the plain version on one batch: banded_fwd
     (each body that takes W) on every dirs word of a processed row and
     on best, bi and bd; banded_tb on the plain dirs; the fused output;
-    banded_fwd_waves (W <= 4096, waves 2 and 4) followed by banded_tb.
+    banded_fwd_waves (waves 2 and 4, where fwd_body gives "diag")
+    followed by banded_tb.
     Returns (device inputs, plain forward, plain fused, max error)."""
     from shasta_tpu_torch.ops import align_kernel as K
 
@@ -370,7 +412,7 @@ def check_kernels(host, LA, W):
         errs[f"fwd {body}"] = fwd_err(K._banded_fwd_body(body, a, a_len, b, b_len, bm, **kw))
     errs["tb"] = int((K.banded_tb(pdirs, pbi, pbd, bm, LA=LA, W=W) - pmj).abs().max())
     errs["fused"] = int((K.banded_align_pairs(*dev, **kw) - pfused).abs().max())
-    for w in WAVES if W <= K.WAVES_MAX_W else ():
+    for w in WAVES if K.fwd_body(LA, W) == "diag" else ():
         errs[f"waves {w}"] = max(
             fwd_err(K.banded_fwd_waves(a, a_len, b, b_len, bm, waves=w, **kw)),
             int((K.banded_align_pairs(*dev, waves=w, **kw) - pfused).abs().max()),
@@ -389,6 +431,15 @@ def phase_kernels(sm_clock_mhz):
         check_kernels(edge_batch(128, W), 128, W)
         check_kernels(gap_batch(256, W), 256, W)
         log(f"edge-case and long-gap batches at W={W}: every kernel equal to the plain version")
+    check_kernels(edge_batch(256, 512), 256, 512)
+    for LA, W in ((128, 33), (128, 128), (256, 512), (1024, 2048)):
+        check_kernels(mixed_batch(LA, W), LA, W)
+    log(
+        "edge-case batch at LA 256 x W 512 and mixed-length batches (a_len 0 to "
+        "LA + 40 in one warp, 13 pairs) at 128 x 33, 128 x 128, 256 x 512, "
+        "1024 x 2048: every kernel equal to the plain version, banded_fwd_waves "
+        "at waves 2 and 4 included"
+    )
     results = {}
     for LA, W, B in SHAPES:
         kw = dict(LA=LA, LB=LA, W=W, **SCORES)
@@ -430,7 +481,7 @@ def phase_kernels(sm_clock_mhz):
             w: cuda_ms(
                 lambda: K.banded_fwd_waves(a, a_len, b, b_len, bm, waves=w, **kw), reps
             )
-            for w in (WAVES if W <= K.WAVES_MAX_W else ())
+            for w in (WAVES if body == "diag" else ())
         }
 
         rows = int(a_len.clamp(max=LA).sum())
@@ -472,8 +523,9 @@ def phase_kernels(sm_clock_mhz):
         for w, ms in waves_ms.items():
             log(
                 f"  banded_fwd_waves LA={LA} W={W} B={B} waves={w}: equal; {ms:.3f} ms "
-                f"(bound {fwd_bound:.4f} ms by {fwd_by}, {fwd_bound / ms:.1%}; "
-                f"row-scan banded_fwd {rows_ms:.3f} ms, ratio {ms / rows_ms:.2f})"
+                f"(bound {fwd_bound:.4f} ms by {fwd_by}, {fwd_bound / ms:.1%}; plain "
+                f"{(t1 - t0) * 1e3:.1f} ms; banded_fwd ({body}) {fwd_ms:.3f} ms, "
+                f"ratio {ms / fwd_ms:.2f})"
             )
         del dirs, pfused
     return results
@@ -482,9 +534,10 @@ def phase_kernels(sm_clock_mhz):
 def phase_blocks_per_sm():
     """Whether a one-warp block is bound by its own latency or by what
     the SM can issue: at 4096 x 128, both banded_fwd bodies and
-    banded_fwd_waves (waves 2) with 1, 2, 4, 8 and 16 blocks per SM
-    (up to 4 warps on each SM sub-partition). Times that stay flat as
-    the blocks grow mean latency-bound blocks."""
+    banded_fwd_waves (waves 2 and 4) with 1, 2, 4, 8 and 16 pairs per SM
+    (for banded_fwd up to 4 warps on each SM sub-partition, for the waves
+    kernel a half and a quarter of that). Times that stay flat as the
+    pairs grow mean latency-bound warps."""
     from shasta_tpu_torch.ops import align_kernel as K
 
     LA, W = 4096, 128
@@ -501,14 +554,15 @@ def phase_blocks_per_sm():
             row[f"{body}_ms"] = cuda_ms(
                 lambda: K._banded_fwd_body(body, a, a_len, b, b_len, bm, **kw), 5
             )
-        row["waves2_ms"] = cuda_ms(
-            lambda: K.banded_fwd_waves(a, a_len, b, b_len, bm, waves=2, **kw), 5
-        )
+        for w in WAVES:
+            row[f"waves{w}_ms"] = cuda_ms(
+                lambda: K.banded_fwd_waves(a, a_len, b, b_len, bm, waves=w, **kw), 5
+            )
         out[per_sm] = row
         log(
-            f"blocks per SM {per_sm} LA={LA} W={W} B={B}: banded_fwd anti-diagonal "
+            f"pairs per SM {per_sm} LA={LA} W={W} B={B}: banded_fwd anti-diagonal "
             f"{row['diag_ms']:.3f} ms, row-scan {row['rows_ms']:.3f} ms, waves 2 "
-            f"{row['waves2_ms']:.3f} ms"
+            f"{row['waves2_ms']:.3f} ms, waves 4 {row['waves4_ms']:.3f} ms"
         )
     return out
 
@@ -587,7 +641,8 @@ def phase_golden(work):
         metrics = json.load(f)
     outputs = {}
     for label, device, waves in (
-        ("cuda", "cuda", None), ("cuda-waves2", "cuda", "2"), ("cpu", "cpu", None)
+        ("cuda", "cuda", None), ("cuda-waves2", "cuda", "2"),
+        ("cuda-waves4", "cuda", "4"), ("cpu", "cpu", None),
     ):
         run_dir = os.path.join(work, f"golden-{label}")
         reset_launches()
@@ -610,7 +665,7 @@ def phase_golden(work):
         got = {k: summary[k] for k in GOLDEN_KEYS}
         if got != metrics:
             raise AssertionError(f"golden ({label}): metrics {got} != {metrics}")
-        want_waves = label == "cuda-waves2"
+        want_waves = label.startswith("cuda-waves")
         if (launches["banded_fwd_waves"] > 0) != want_waves:
             raise AssertionError(f"golden ({label}): launches {launches}")
         if device == "cuda" and launches["banded_tb"] == 0:
@@ -624,11 +679,11 @@ def phase_golden(work):
             f"{' SHASTA_TORCH_WAVES=' + waves if waves else ''}: "
             f"{time.perf_counter() - t0:.2f}s, launches {launches}"
         )
-    if not outputs["cuda"] == outputs["cuda-waves2"] == outputs["cpu"]:
-        raise AssertionError("golden: FASTA/GFA files differ across the three runs")
+    if any(out != outputs["cpu"] for out in outputs.values()):
+        raise AssertionError("golden: FASTA/GFA files differ across the four runs")
     log(
         "golden: all eight stage hashes equal the pinned values and the summary "
-        "equals mode0_metrics.json in the three runs; Assembly.fasta, "
+        "equals mode0_metrics.json in the four runs; Assembly.fasta, "
         "Assembly.gfa and Assembly-BothStrands.gfa byte-equal across them"
     )
 
@@ -638,25 +693,56 @@ def kernel_classes(trace, sm_clock_mhz, label):
     bound of one traced run; prints one line per class."""
     by_shape = {}
     for name, body, LA, W, B, rows, start, end in trace:
-        e = by_shape.setdefault((name, body, LA, W), [0, 0, 0.0, 0, 0])
+        e = by_shape.setdefault((name, body, LA, W), [0, 0, 0.0, 0, 0, 0])
         e[0] += 1
         e[1] += B
         e[2] += start.elapsed_time(end)
         e[3] += int(rows.clamp(max=LA).sum()) * (W if name.startswith("banded_fwd") else 1)
         e[4] += B * LA * W
+        e[5] = max(e[5], B)
     shapes = []
-    for (name, body, LA, W), (n, B, ms, work, nominal) in sorted(by_shape.items()):
+    for (name, body, LA, W), (n, B, ms, work, nominal, bmax) in sorted(by_shape.items()):
         bound, by, _ops_ms, _bytes_ms = class_bound(name, LA, W, B, work, sm_clock_mhz)
         shapes.append({
             "kernel": name, "body": body, "LA": LA, "W": W, "launches": n, "pairs": B,
-            "device_ms": ms, "work": work, "nominal_cells": nominal,
-            "bound_ms": bound, "bound_by": by,
+            "max_pairs_per_launch": bmax, "device_ms": ms, "work": work,
+            "nominal_cells": nominal, "bound_ms": bound, "bound_by": by,
         })
         log(
-            f"  [{label}] {name} ({body}) LA={LA} W={W}: {n} launches, {B} pairs, {ms:.2f} ms "
+            f"  [{label}] {name} ({body}) LA={LA} W={W}: {n} launches, {B} pairs "
+            f"({B / n:.0f} per launch, at most {bmax}), {ms:.2f} ms "
             f"(bound {bound:.4f} ms by {by}, {bound / ms:.1%})"
         )
     return shapes
+
+
+def compare_classes(default, waves):
+    """The forward kernels' per-(LA, W) device ms of the default run beside
+    the waves-2 rerun's (the same pairs, launched alike), with the
+    default's pairs per launch; prints one line per class and returns
+    the rows."""
+    rows = {}
+    for label, shapes in (("default", default), ("waves2", waves)):
+        for c in shapes:
+            if c["kernel"] == "banded_tb":
+                continue
+            r = rows.setdefault((c["LA"], c["W"]), {"LA": c["LA"], "W": c["W"]})
+            r[f"{label}_kernel"] = f"{c['kernel']} ({c['body']})"
+            r[f"{label}_ms"] = c["device_ms"]
+            r[f"{label}_launches"] = c["launches"]
+            r[f"{label}_pairs"] = c["pairs"]
+            r[f"{label}_max_pairs_per_launch"] = c["max_pairs_per_launch"]
+    for (LA, W), r in sorted(rows.items()):
+        if "default_ms" not in r or "waves2_ms" not in r:
+            raise AssertionError(f"a forward class ran in one rerun only: {r}")
+        log(
+            f"  forward LA={LA} W={W}: default {r['default_kernel']} "
+            f"{r['default_ms']:.2f} ms, waves 2 {r['waves2_kernel']} {r['waves2_ms']:.2f} ms "
+            f"(ratio {r['waves2_ms'] / r['default_ms']:.2f}); {r['default_launches']} "
+            f"launches, {r['default_pairs'] / r['default_launches']:.0f} pairs per launch "
+            f"(at most {r['default_max_pairs_per_launch']})"
+        )
+    return list(rows.values())
 
 
 def phase_real_size(work, sm_clock_mhz):
@@ -756,12 +842,12 @@ def phase_real_size(work, sm_clock_mhz):
     if not aligned.check_strictly_increasing():
         raise AssertionError("alignment ordinals not strictly increasing")
 
-    # Spot check: 256 seeded kept pairs plus the longest, re-aligned with
+    # Spot check: 127 seeded kept pairs plus the longest, re-aligned with
     # the plain version on the card; identical stores.
     rng = np.random.default_rng(7)
     longest = int(np.argmax(aligned.n_markers0 + aligned.n_markers1))
     pick = np.unique(np.concatenate([
-        rng.choice(aligned.count, min(255, aligned.count), replace=False), [longest]
+        rng.choice(aligned.count, min(127, aligned.count), replace=False), [longest]
     ]))
     # computeAlignments builds the same table (a hash of every one of the
     # 4^k k-mers) on the host before the alignment engine starts.
@@ -795,42 +881,71 @@ def phase_real_size(work, sm_clock_mhz):
     )
     del ds_table, sub
 
-    # computeAlignments again on the run's Markers and AlignmentCandidates
-    # with the waves kernel: counts to 0 just before, read just after.
-    waves_dir = os.path.join(work, "ont5mb-waves2")
-    asm = Assembler(waves_dir, cfg, device="cuda")
-    asm.reads = ReadStore.from_arrays(store.load_stage("Reads"))
-    asm.kmer_table = kmer_table
-    asm.markers = markers
-    asm.candidates = CandidatePairs.from_arrays(store.load_stage("AlignmentCandidates"))
-    reset_launches()
-    K.TRACE = []
-    t0 = time.perf_counter()
-    with waves_env("2"):
-        asm.compute_alignments()
-    waves_s = time.perf_counter() - t0
-    waves_launches = dict(K.LAUNCHES)
-    waves_trace, K.TRACE = K.TRACE, None
-    log(
-        f"real size computeAlignments with SHASTA_TORCH_WAVES=2: {waves_s:.2f}s "
-        f"(default run {times['computeAlignments']:.2f}s), launches {waves_launches}"
-    )
-    waves_shapes = kernel_classes(waves_trace, sm_clock_mhz, "waves 2")
+    # computeAlignments again on the run's Markers and AlignmentCandidates,
+    # with the default route and then with the waves kernel: counts to 0
+    # just before each, read just after.
+    reruns = {}
+    for label, waves in (("default", None), ("waves2", "2")):
+        rerun_dir = os.path.join(work, f"ont5mb-{label}")
+        asm = Assembler(rerun_dir, cfg, device="cuda")
+        asm.reads = ReadStore.from_arrays(store.load_stage("Reads"))
+        asm.kmer_table = kmer_table
+        asm.markers = markers
+        asm.candidates = CandidatePairs.from_arrays(store.load_stage("AlignmentCandidates"))
+        reset_launches()
+        K.TRACE = []
+        t0 = time.perf_counter()
+        with waves_env(waves):
+            asm.compute_alignments()
+        secs = time.perf_counter() - t0
+        rerun_launches = dict(K.LAUNCHES)
+        rerun_trace, K.TRACE = K.TRACE, None
+        log(
+            f"real size computeAlignments again ({label}, SHASTA_TORCH_WAVES="
+            f"{waves or 'unset'}): {secs:.2f}s (main run {times['computeAlignments']:.2f}s), "
+            f"launches {rerun_launches}"
+        )
+        reruns[label] = {
+            "compute_alignments_s": secs, "launches": rerun_launches,
+            "shapes": kernel_classes(rerun_trace, sm_clock_mhz, label), "dir": rerun_dir,
+        }
+        h = stage_hashes(rerun_dir)["Alignments"]
+        if h != stage_hashes(run_dir)["Alignments"]:
+            raise AssertionError(f"Alignments hash differs in the {label} rerun: {h[:12]}")
+    waves_launches = reruns["waves2"]["launches"]
+    waves_shapes = reruns["waves2"]["shapes"]
     if waves_launches["banded_fwd_waves"] == 0:
         raise AssertionError(f"banded_fwd_waves never launched: {waves_launches}")
-    h1 = stage_hashes(run_dir)["Alignments"]
-    h2 = stage_hashes(waves_dir)["Alignments"]
-    if h1 != h2:
-        raise AssertionError(f"Alignments hash differs under waves 2: {h1[:12]} {h2[:12]}")
-    log(f"real size: Alignments hash {h1[:16]} equal with SHASTA_TORCH_WAVES=2")
+    wrong = [
+        c for c in waves_shapes
+        if c["kernel"] != "banded_tb" and c["kernel"] != K.fwd_kernel(c["LA"], c["W"], 2)
+    ]
+    if wrong:
+        raise AssertionError(
+            f"a forward class under waves 2 ran another kernel than fwd_kernel picks: {wrong}"
+        )
+    by_class = compare_classes(reruns["default"]["shapes"], waves_shapes)
+    totals = {}
+    for label, r in reruns.items():
+        fwd = sum(c["device_ms"] for c in r["shapes"] if c["kernel"] != "banded_tb")
+        tb = sum(c["device_ms"] for c in r["shapes"] if c["kernel"] == "banded_tb")
+        totals[label] = {"fwd_ms": fwd, "tb_ms": tb}
+        r.update(totals[label])
+    d, w = totals["default"], totals["waves2"]
+    log(
+        f"real size computeAlignments kernel device time: default fwd {d['fwd_ms']:.1f} + "
+        f"tb {d['tb_ms']:.1f} = {d['fwd_ms'] + d['tb_ms']:.1f} ms; waves 2 fwd "
+        f"{w['fwd_ms']:.1f} + tb {w['tb_ms']:.1f} = {w['fwd_ms'] + w['tb_ms']:.1f} ms "
+        f"(ratio {(w['fwd_ms'] + w['tb_ms']) / (d['fwd_ms'] + d['tb_ms']):.2f}); "
+        f"Alignments hash equal to the main run's in both"
+    )
     return {
         "launches": launches, "times": times, "wall_s": wall, "peak_bytes": peak,
         "peak_rss_kb": summary["peakMemoryUsageKB"],
         "summary": {k: v for k, v in summary.items() if not isinstance(v, (dict, list))},
         "shapes": shapes, "fwd_ms": fwd_ms, "tb_ms": tb_ms, "nominal_cells": nominal,
         "processed_cells": real_cells,
-        "waves": {"launches": waves_launches, "compute_alignments_s": waves_s,
-                  "shapes": waves_shapes},
+        "reruns": reruns, "by_class": by_class,
     }
 
 
@@ -854,7 +969,7 @@ def _align_params(cfg):
 
 def main() -> int:
     t_start = time.perf_counter()
-    sm_clock, sass = phase_device_and_build()
+    sm_clock, build = phase_device_and_build()
     kernels = phase_kernels(sm_clock)
     blocks = phase_blocks_per_sm()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
@@ -870,8 +985,18 @@ def main() -> int:
     rep = max(kernels, key=lambda k: (fwd_ms.get(k, 0.0), k[0] * k[1]))
     r = kernels[rep]
     shape = {"LA": rep[0], "W": rep[1], "B": r["B"]}
+    # banded_fwd_waves at the listed shape, among those it takes, whose
+    # class took the most forward time in the waves-2 rerun.
+    waves_fwd = {
+        (c["LA"], c["W"]): c["device_ms"]
+        for c in real["reruns"]["waves2"]["shapes"] if c["kernel"] == "banded_fwd_waves"
+    }
+    rep_w = max(
+        (k for k, v in kernels.items() if v["waves_ms"]),
+        key=lambda k: (waves_fwd.get(k, 0.0), k[0] * k[1]),
+    )
+    rw = kernels[rep_w]
     csrc = "shasta_tpu_torch/csrc/"
-    src = csrc + "banded_align.cu"
     line = {"kernels": [
         {"name": "banded_fwd", "route": "cuda",
          "source": csrc + ("banded_fwd_diag.cu" if r["body"] == "diag" else "banded_align.cu"),
@@ -887,19 +1012,22 @@ def main() -> int:
          "ms": r["tb_ms"], "plain_ms": r["tb_plain_ms"],
          "bound_ms": r["tb_bound_ms"], "bound_by": r["tb_bound_by"],
          "library_ms": None, "shape": shape},
-        {"name": "banded_fwd_waves", "route": "cuda", "source": src,
+        {"name": "banded_fwd_waves", "route": "cuda",
+         "source": csrc + "banded_fwd_diag.cu",
          "replaces": "shasta_tpu/ops/align_pallas.py:340",
-         "launches": real["waves"]["launches"]["banded_fwd_waves"],
+         "launches": real["reruns"]["waves2"]["launches"]["banded_fwd_waves"],
          "max_abs_err": max(k["waves_max_abs_err"] for k in kernels.values()),
-         "ms": r["waves_ms"][2], "plain_ms": r["fwd_plain_ms"],
-         "bound_ms": r["fwd_bound_ms"], "bound_by": r["fwd_bound_by"],
-         "library_ms": None, "shape": dict(shape, waves=2)},
+         "ms": rw["waves_ms"][2], "plain_ms": rw["fwd_plain_ms"],
+         "bound_ms": rw["fwd_bound_ms"], "bound_by": rw["fwd_bound_by"],
+         "library_ms": None,
+         "shape": {"LA": rep_w[0], "W": rep_w[1], "B": rw["B"], "waves": 2},
+         "waves4_ms": rw["waves_ms"][4], "banded_fwd_ms": rw["fwd_ms"]},
     ]}
     card = smi("name,power.limit")
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(
-            {"card": card, "sm_clock_mhz": sm_clock, "diag_sass": sass,
+            {"card": card, "sm_clock_mhz": sm_clock, "build": build,
              "kernels": [dict(v) for v in kernels.values()],
              "blocks_per_sm": blocks, "real_size": real,
              "seconds": time.perf_counter() - t_start},

@@ -15,9 +15,11 @@ kernels (``csrc/*.cu``) replace its four Pallas kernels:
   and ``_kernel_waves``'s traceback half (:496-536), which walks each
   pair as ``_kernel`` does;
 - ``banded_fwd_waves`` replaces ``_kernel_waves``'s forward half (:340):
-  the row-scan body with 2 or 4 pairs per thread block, their scan steps
-  interleaved. It runs when ``SHASTA_TORCH_WAVES`` (or the ``waves``
-  argument) is 2 or 4; see :func:`banded_align_pairs` for the rule.
+  the anti-diagonal body with 2 or 4 pairs per warp on independent
+  registers (the same source, ``csrc/banded_fwd_diag.cu``), for the
+  launches where :func:`fwd_body` gives "diag". ``banded_align_pairs``
+  runs it when ``SHASTA_TORCH_WAVES`` (or the ``waves`` argument) is 2 or
+  4 and ``banded_fwd`` elsewhere (:func:`fwd_kernel`).
 
 The TPU splits monolithic and chunked regimes because of its VMEM
 budget; the card has no such budget, so one kernel pair serves every
@@ -105,8 +107,6 @@ DIAG_W_PER_LA = 2
 # the main path, at which it measured faster (LA 1024 x W 2048). No wider
 # band was measured on it at LA >= W / 2.
 DIAG_MAX_W = 2048
-# The widest band banded_fwd_waves takes (its K = 4 instantiation).
-WAVES_MAX_W = 4096
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC_DIR = os.path.join(_PKG, "csrc")
@@ -217,6 +217,7 @@ def build_kernels(force: bool = False) -> float:
                 getattr(lib, name).restype = ci
             lib.banded_tb_launch.argtypes = [vp] * 4 + [ci] * 3 + [vp] * 2
             lib.banded_tb_launch.restype = ci
+            # banded_fwd_waves_launch takes waves after the scores.
             lib.banded_fwd_waves_launch.argtypes = [vp] * 5 + [ci] * 8 + [vp] * 5
             lib.banded_fwd_waves_launch.restype = ci
             _lib = lib
@@ -303,23 +304,26 @@ def _banded_fwd_body(
 def banded_fwd_waves(
     a, a_len, b, b_len, band_min, *, LA, LB, W, match, mismatch, gap, waves
 ):
-    """:func:`banded_fwd` with ``waves`` (2 or 4) pairs per thread block
-    and W <= WAVES_MAX_W: the same outputs, bit for bit. A batch that is
+    """:func:`banded_fwd` with ``waves`` (2 or 4) pairs per warp, for the
+    launches where :func:`fwd_body` gives "diag": the same outputs, bit
+    for bit. It raises on any other shape (it does not run the row-scan
+    body) and on any other ``waves``, on every device. A batch that is
     not a multiple of ``waves`` leaves the last block's extra slots
     empty (the kernel guards them)."""
+    if waves not in (2, 4) or fwd_body(LA, W) != "diag":
+        raise ValueError(
+            f"banded_fwd_waves takes waves 2 or 4 and the anti-diagonal "
+            f"body's shapes (W <= {DIAG_MAX_W} and W <= {DIAG_W_PER_LA} LA); "
+            f"got LA={LA} W={W} waves={waves}"
+        )
     if a.device.type != "cuda":
         return banded_fwd_plain(
             a, a_len, b, b_len, band_min,
             LA=LA, LB=LB, W=W, match=match, mismatch=mismatch, gap=gap,
         )
     _check_cuda(a, a_len, b, b_len, band_min)
-    if W > WAVES_MAX_W or waves not in (2, 4):
-        raise ValueError(
-            f"banded_fwd_waves takes W <= {WAVES_MAX_W} and waves 2 or 4; "
-            f"got W={W} waves={waves}"
-        )
     return _launch_fwd(
-        "banded_fwd_waves", "rows", a, a_len, b, b_len, band_min, LA, LB, W,
+        "banded_fwd_waves", "diag", a, a_len, b, b_len, band_min, LA, LB, W,
         match, mismatch, gap, waves,
     )
 
@@ -327,7 +331,7 @@ def banded_fwd_waves(
 _FWD_LAUNCHERS = {
     ("banded_fwd", "diag"): "banded_fwd_diag_launch",
     ("banded_fwd", "rows"): "banded_fwd_rows_launch",
-    ("banded_fwd_waves", "rows"): "banded_fwd_waves_launch",
+    ("banded_fwd_waves", "diag"): "banded_fwd_waves_launch",
 }
 
 
@@ -563,6 +567,17 @@ def resolve_waves(waves=None) -> int:
     return int(waves)
 
 
+def fwd_kernel(LA: int, W: int, waves: int) -> str:
+    """The forward kernel banded_align_pairs launches for ``waves`` pairs
+    per warp: "banded_fwd_waves" where waves > 1 and :func:`fwd_body`
+    gives "diag", "banded_fwd" elsewhere. This is the port's form of
+    ``_invoke``'s fallback to ``_kernel`` where its waves condition fails
+    (align_pallas.py:1159); the output is the same either way."""
+    if waves > 1 and fwd_body(LA, W) == "diag":
+        return "banded_fwd_waves"
+    return "banded_fwd"
+
+
 def banded_align_pairs(
     a, a_len, b, b_len, band_min, *, LA, LB, W, match, mismatch, gap, waves=None
 ) -> torch.Tensor:
@@ -572,18 +587,16 @@ def banded_align_pairs(
     in launches of at most :func:`dirs_chunk_pairs` pairs each.
 
     ``waves`` (:func:`resolve_waves`; None reads ``SHASTA_TORCH_WAVES``)
-    picks the forward kernel on CUDA tensors: 1 runs ``banded_fwd``; 2
-    or 4 run ``banded_fwd_waves`` when W <= WAVES_MAX_W (4096), and
-    ``banded_fwd`` for a wider band, as ``_invoke`` (align_pallas.py:1159)
-    falls back to ``_kernel`` where its waves condition fails. The
-    output is the same either way."""
+    and the shape pick the forward kernel (:func:`fwd_kernel`): 1 runs
+    ``banded_fwd``; 2 or 4 run ``banded_fwd_waves`` where the
+    anti-diagonal body takes the shape and ``banded_fwd`` elsewhere."""
     waves = resolve_waves(waves)
     a, a_len, b, b_len, band_min = prepare_inputs(
         a, a_len, b, b_len, band_min, LA=LA, LB=LB, W=W
     )
     B = a.shape[0]
     kw = dict(LA=LA, LB=LB, W=W, match=match, mismatch=mismatch, gap=gap)
-    if waves > 1 and W <= WAVES_MAX_W:
+    if fwd_kernel(LA, W, waves) == "banded_fwd_waves":
         fwd = functools.partial(banded_fwd_waves, waves=waves)
     else:
         fwd = banded_fwd

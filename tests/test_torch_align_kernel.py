@@ -284,6 +284,62 @@ def test_forward_body_by_la_and_width(LA, W, body):
     assert K.fwd_body(LA, W) == body
 
 
+@pytest.mark.parametrize(
+    "LA,W", [(4096, 128), (128, 128), (64, 128), (512, 512), (1024, 2048),
+             (128, 512), (512, 2048), (1, 128), (4096, 2049)],
+)
+@pytest.mark.parametrize("waves", [1, 2, 4])
+def test_forward_kernel_route(LA, W, waves):
+    """banded_align_pairs launches banded_fwd_waves exactly where waves > 1
+    and fwd_body gives the anti-diagonal body, banded_fwd elsewhere."""
+    want = "banded_fwd_waves" if waves > 1 and K.fwd_body(LA, W) == "diag" else "banded_fwd"
+    assert K.fwd_kernel(LA, W, waves) == want
+
+
+@pytest.mark.parametrize("LA,W", [(128, 128), (64, 128), (32, 128), (16, 33)])
+def test_banded_align_pairs_takes_the_route(monkeypatch, LA, W):
+    """A spy on both forward wrappers (each then runs the plain version
+    on the CPU tensors): banded_align_pairs(waves=2) calls
+    banded_fwd_waves with waves 2 where fwd_kernel says so and banded_fwd
+    elsewhere, and the fused output equals waves 1's."""
+    calls = []
+
+    def spy(name):
+        def run(*args, **kw):
+            calls.append((name, kw.pop("waves", None)))
+            return K.banded_fwd_plain(*args, **kw)
+        return run
+
+    monkeypatch.setattr(K, "banded_fwd", spy("banded_fwd"))
+    monkeypatch.setattr(K, "banded_fwd_waves", spy("banded_fwd_waves"))
+    a, a_len, b, b_len, bm = make_batch(LA + W, B=5, LA=LA, LB=LA, W=W)
+    got = port(a, a_len, b, b_len, bm, LA=LA, LB=LA, W=W, waves=2)
+    want = K.fwd_kernel(LA, W, 2)
+    assert calls == [(want, 2 if want == "banded_fwd_waves" else None)]
+    calls.clear()
+    assert np.array_equal(got, port(a, a_len, b, b_len, bm, LA=LA, LB=LA, W=W, waves=1))
+    assert calls == [("banded_fwd", None)]
+
+
+def test_banded_fwd_waves_raises_outside_its_region():
+    """banded_fwd_waves refuses a shape the anti-diagonal body does not
+    take (W > 2 LA, W > DIAG_MAX_W) and waves other than 2 and 4, on
+    every device; inside the region it equals banded_fwd_plain on the
+    CPU."""
+    kw = dict(LB=128, **KW)
+    a, a_len, b, b_len, bm = (
+        torch.from_numpy(x) for x in make_batch(5, B=5, LA=128, LB=128, W=128)
+    )
+    args = K.prepare_inputs(a, a_len, b, b_len, bm, LA=128, LB=128, W=128)
+    for LA, W, waves in ((128, 512, 2), (64, 129, 4), (4096, 4096, 2), (128, 128, 3)):
+        with pytest.raises(ValueError, match="banded_fwd_waves takes"):
+            K.banded_fwd_waves(*args, LA=LA, W=W, waves=waves, **kw)
+    for waves in (2, 4):
+        got = K.banded_fwd_waves(*args, LA=128, W=128, waves=waves, **kw)
+        ref = K.banded_fwd_plain(*args, LA=128, W=128, **kw)
+        assert all(torch.equal(x, y) for x, y in zip(got, ref))
+
+
 def test_cuda_device_without_card_raises(tmp_path):
     """device='cuda' with no card raises; nothing falls back to the CPU."""
     if torch.cuda.is_available():

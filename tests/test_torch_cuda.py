@@ -17,7 +17,7 @@ import torch
 from shasta_tpu_torch.ops import align as A
 from shasta_tpu_torch.ops import align_kernel as K
 from shasta_tpu_torch.utils import synth
-from tests.torch_common import edge_batch, gap_batch, make_batch
+from tests.torch_common import edge_batch, gap_batch, make_batch, mixed_batch
 
 KW = dict(match=6, mismatch=-1, gap=-1)
 
@@ -105,13 +105,22 @@ def test_special_batches_match_plain_on_card(card, batch, W):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("waves", [2, 4])
-@pytest.mark.parametrize("LA,W", [(2048, 128), (512, 2048)])
-def test_waves_kernel_matches_plain_on_card(card, LA, W, waves):
-    """banded_fwd_waves, 2 or 4 pairs per block, against the plain
+@pytest.mark.parametrize(
+    "LA,W,batch",
+    [(2048, 128, "make"), (1024, 2048, "make"), (128, 33, "mixed"),
+     (128, 128, "mixed"), (256, 512, "mixed")],
+)
+def test_waves_kernel_matches_plain_on_card(card, LA, W, batch, waves):
+    """banded_fwd_waves, 2 or 4 pairs per warp, against the plain
     version: dirs of every processed row, best, bi, bd and the fused
-    output are equal. B = 11 leaves the last block partly empty."""
-    a, a_len, b, b_len, bm = make_batch(LA + waves, B=11, LA=LA, LB=LA, W=W)
-    args = [torch.from_numpy(x).to(card) for x in (a, a_len, b, b_len, bm)]
+    output are equal. B = 11 and 13 leave the last block partly empty;
+    the mixed batch puts pairs of a_len 0, 1, 2, 17, LA / 2, LA and
+    LA + 40 in one warp."""
+    if batch == "make":
+        host = make_batch(LA + waves, B=11, LA=LA, LB=LA, W=W)
+    else:
+        host = mixed_batch(LA, W, B=13)
+    args = [torch.from_numpy(x).to(card) for x in host]
     kw = dict(LA=LA, LB=LA, W=W, **KW)
     pa, pal, pb, pbl, pbm = K.prepare_inputs(*args, LA=LA, LB=LA, W=W)
     before = K.LAUNCHES["banded_fwd_waves"]

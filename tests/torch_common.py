@@ -104,3 +104,30 @@ def gap_batch(LA=256, W=128, seed=11):
             a_len[t], b_len[t] = n + L, n
             bm[t] = -L - (W // 8) + (t % 3)
     return a, a_len, b, b_len, bm
+
+
+def mixed_batch(LA=128, W=128, B=13, seed=21):
+    """Pairs of very different lengths side by side, as the waves kernel
+    puts them in one warp: a_len cycles through 0, 1, 2, 17, LA // 2, LA
+    and LA + 40 (clamped to LA rows), b_len within 5 of it, each pair a
+    copy of one sequence with 10% substitutions and its band centred near
+    the diagonal."""
+    rng = np.random.default_rng(seed)
+    a = np.full((B, LA), -1, np.int32)
+    b = np.full((B, LA), -2, np.int32)
+    a_len = np.zeros(B, np.int32)
+    b_len = np.zeros(B, np.int32)
+    bm = np.zeros(B, np.int32)
+    cycle = [0, 1, 2, 17, LA // 2, LA, LA + 40]
+    for t in range(B):
+        g = rng.integers(0, 50, 2 * LA).astype(np.int32)
+        la = cycle[t % len(cycle)]
+        lb = min(LA, max(1, la + int(rng.integers(-5, 6))))
+        n = min(la, LA)
+        a[t, :n] = g[:n]
+        b[t, :lb] = g[:lb]
+        sub = rng.random(n) < 0.1
+        a[t, :n][sub] = rng.integers(0, 50, int(sub.sum()))
+        a_len[t], b_len[t] = la, lb
+        bm[t] = -(W // 2) + int(rng.integers(-(W // 8), W // 8 + 1))
+    return a, a_len, b, b_len, bm
