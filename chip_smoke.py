@@ -1,6 +1,6 @@
 """Drive shasta_tpu_torch on one NVIDIA card and hold it to its references.
 
-    python3 chip_smoke.py            # needs one CUDA device
+    python3 chip_smoke.py   # needs one CUDA device
 
 Phases (any failure raises; the script then exits non-zero and prints
 no result line):
@@ -35,13 +35,38 @@ no result line):
    fwd_body picks, the W 128 and 512 classes with LA >= W / 2 on the
    anti-diagonal body; 128 kept pairs are re-aligned with the plain
    version on the card and must agree. Then computeAlignments runs
-   twice more on the run's own Markers and AlignmentCandidates, with
-   SHASTA_TORCH_WAVES unset and =2 (the waves kernel's main path): both
-   give the run's Alignments hash, and each class's forward time under
-   waves 2 prints beside the default's, with its pairs per launch.
+   again on the run's own Markers and AlignmentCandidates with
+   SHASTA_TORCH_WAVES=2 (the waves kernel's main path): it gives the
+   run's Alignments hash, and each class's forward time prints beside
+   that of the run's own computeAlignments, with its pairs per launch.
+5. Mode 2 golden: tests/test_reference_parity.py:_golden_run_mode2's
+   input and configuration through the assemble command on the card, on
+   the card with SHASTA_TORCH_WAVES=2 and on the CPU: all 17 values of
+   tests/golden/mode2_stage_hashes.json (8 stage manifests, 9 output
+   files) equal the pinned ones in each run.
+6. Mode 2 at a real size on the card (run_assembly): two 5 Mb haplotypes
+   (a random genome, seed 600, and a copy with one substitution every
+   1,000 bases at a seeded jitter, seed 601), ONT-like reads at 15x on
+   each (seeds 602 and 603, phase 4's length model),
+   Nanopore-Phased-May2022 verbatim. Launch counts reset just before the
+   run and read just after; the stages, counts, bubbles, phased bubbles
+   and the Phased and Haploid FASTA's length and N50 print, with the
+   kernels' classes; 128 kept pairs re-aligned with the plain version on
+   the card must agree. It fails if no bubble is phased or
+   Assembly-Phased.fasta is empty.
+7. Alignment method 4 and iterative assembly: (a) the mode-0 golden input
+   under --Align.alignMethod 4 on the card and on the CPU (equal
+   Alignments manifests, byte-equal FASTA/GFA); (b) method 4 on the first
+   2,048 candidates of phase 4's run, on its Markers, with the host time
+   of align4_bands apart from the kernels', and 128 of its tasks
+   re-aligned with the plain version on the card; (c) iterative assembly
+   on tests/test_iterative.py's input on the card and on the CPU (every
+   stage manifest and the FASTA/GFA equal). Methods 0 and 1 run on the
+   host only and are left to the CPU tests.
 
-The line before the last is {"kernels": [...]}; the last line is
-{"ok": true, "device": {...}}.
+Each phase's seconds print. The line before the last is
+{"kernels": [...]}, each kernel's launches summed over the paths that
+ran it (``paths``); the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -65,6 +90,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
 GOLDEN = os.path.join(ROOT, "tests", "golden", "mode0_stage_hashes.json")
 GOLDEN_METRICS = os.path.join(ROOT, "tests", "golden", "mode0_metrics.json")
+GOLDEN_MODE2 = os.path.join(ROOT, "tests", "golden", "mode2_stage_hashes.json")
 STAGES = [
     "Reads", "Kmers", "Markers", "AlignmentCandidates", "Alignments",
     "ReadGraph", "MarkerGraph", "AssemblyGraph",
@@ -381,21 +407,24 @@ def class_bound(name, LA, W, B, work, sm_clock_mhz):
     return bound_ms(work * TB_OPS_PER_ROW, 4 * B * LA + 4 * work + 16 * B, sm_clock_mhz)
 
 
-def check_kernels(host, LA, W):
+def check_kernels(host, LA, W, plain=None, pmj=None):
     """Every kernel against the plain version on one batch: banded_fwd
     (each body that takes W) on every dirs word of a processed row and
     on best, bi and bd; banded_tb on the plain dirs; the fused output;
     banded_fwd_waves (waves 2 and 4, where fwd_body gives "diag")
-    followed by banded_tb.
-    Returns (device inputs, plain forward, plain fused, max error)."""
+    followed by banded_tb. ``plain`` and ``pmj``: the plain version's
+    forward and traceback outputs on these inputs, when the caller has
+    them. Returns (device inputs, plain forward, plain fused, max error)."""
     from shasta_tpu_torch.ops import align_kernel as K
 
     kw = dict(LA=LA, LB=LA, W=W, **SCORES)
     dev = [torch.from_numpy(x).cuda() for x in host]
     a, a_len, b, b_len, bm = K.prepare_inputs(*dev, LA=LA, LB=LA, W=W)
-    plain = K.banded_fwd_plain(a, a_len, b, b_len, bm, **kw)
+    if plain is None:
+        plain = K.banded_fwd_plain(a, a_len, b, b_len, bm, **kw)
     pdirs, pbest, pbi, pbd = plain
-    pmj = K.banded_tb_plain(pdirs, pbi, pbd, bm, LA=LA, W=W)
+    if pmj is None:
+        pmj = K.banded_tb_plain(pdirs, pbi, pbd, bm, LA=LA, W=W)
     pfused = torch.cat([K.metrics_from_mj(pmj, pbest), pmj], dim=1)
     words = (torch.arange(K.n_words(LA), device="cuda")[None, :] * 16) < a_len[:, None]
 
@@ -444,19 +473,20 @@ def phase_kernels(sm_clock_mhz):
     for LA, W, B in SHAPES:
         kw = dict(LA=LA, LB=LA, W=W, **SCORES)
         host = make_batch(LA * 7 + W, B, LA, W)
-        # The plain version once, timed: forward, then traceback.
+        # The plain version once, timed (forward, then traceback); the
+        # kernels are held to these outputs.
         dev = [torch.from_numpy(x).cuda() for x in host]
         a, a_len, b, b_len, bm = K.prepare_inputs(*dev, LA=LA, LB=LA, W=W)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        pdirs, pbest, pbi, pbd = K.banded_fwd_plain(a, a_len, b, b_len, bm, **kw)
+        plain = K.banded_fwd_plain(a, a_len, b, b_len, bm, **kw)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        K.banded_tb_plain(pdirs, pbi, pbd, bm, LA=LA, W=W)
+        pmj = K.banded_tb_plain(plain[0], plain[2], plain[3], bm, LA=LA, W=W)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-        del pdirs
-        _, _, pfused, max_err = check_kernels(host, LA, W)
+        _, _, pfused, max_err = check_kernels(host, LA, W, plain, pmj)
+        del plain, pmj
         n_matched = int(pfused[:, 0].sum())
         if n_matched == 0 and LA > 1:
             raise AssertionError(f"no matches at LA={LA} W={W}: a vacuous check")
@@ -624,17 +654,27 @@ def waves_env(value):
             os.environ["SHASTA_TORCH_WAVES"] = old
 
 
+def golden_inputs(work):
+    """The golden input's reads (25 kb genome, seed 4242, 130 reads of 3
+    kb, seed 4243) and an empty conf file (the configuration defaults),
+    written once into ``work``."""
+    from shasta_tpu_torch.utils import synth
+
+    fasta = os.path.join(work, "golden.fasta")
+    conf = os.path.join(work, "defaults.conf")
+    if not os.path.exists(fasta):
+        genome = synth.random_genome(25000, seed=4242)
+        reads = synth.sample_reads(genome, 130, 3000, seed=4243, both_strands=True)
+        synth.write_fasta(fasta, reads)
+        open(conf, "w").close()
+    return fasta, conf
+
+
 def phase_golden(work):
     from shasta_tpu_torch.__main__ import main as cli
     from shasta_tpu_torch.ops import align_kernel as K
-    from shasta_tpu_torch.utils import synth
 
-    genome = synth.random_genome(25000, seed=4242)
-    reads = synth.sample_reads(genome, 130, 3000, seed=4243, both_strands=True)
-    fasta = os.path.join(work, "golden.fasta")
-    synth.write_fasta(fasta, reads)
-    conf = os.path.join(work, "defaults.conf")
-    open(conf, "w").close()
+    fasta, conf = golden_inputs(work)
     with open(GOLDEN) as f:
         pinned = json.load(f)
     with open(GOLDEN_METRICS) as f:
@@ -688,9 +728,9 @@ def phase_golden(work):
     )
 
 
-def kernel_classes(trace, sm_clock_mhz, label):
+def kernel_classes(trace, sm_clock_mhz, label, echo=True):
     """Per (kernel, LA, W) launches, pairs, device ms, processed work and
-    bound of one traced run; prints one line per class."""
+    bound of one traced run; prints one line per class with ``echo``."""
     by_shape = {}
     for name, body, LA, W, B, rows, start, end in trace:
         e = by_shape.setdefault((name, body, LA, W), [0, 0, 0.0, 0, 0, 0])
@@ -708,19 +748,20 @@ def kernel_classes(trace, sm_clock_mhz, label):
             "max_pairs_per_launch": bmax, "device_ms": ms, "work": work,
             "nominal_cells": nominal, "bound_ms": bound, "bound_by": by,
         })
-        log(
-            f"  [{label}] {name} ({body}) LA={LA} W={W}: {n} launches, {B} pairs "
-            f"({B / n:.0f} per launch, at most {bmax}), {ms:.2f} ms "
-            f"(bound {bound:.4f} ms by {by}, {bound / ms:.1%})"
-        )
+        if echo:
+            log(
+                f"  [{label}] {name} ({body}) LA={LA} W={W}: {n} launches, {B} pairs "
+                f"({B / n:.0f} per launch, at most {bmax}), {ms:.2f} ms "
+                f"(bound {bound:.4f} ms by {by}, {bound / ms:.1%})"
+            )
     return shapes
 
 
 def compare_classes(default, waves):
-    """The forward kernels' per-(LA, W) device ms of the default run beside
-    the waves-2 rerun's (the same pairs, launched alike), with the
-    default's pairs per launch; prints one line per class and returns
-    the rows."""
+    """The forward kernels' per-(LA, W) device ms of the main run's
+    computeAlignments beside the waves-2 rerun's (the same pairs, launched
+    alike), with the default's pairs per launch; prints one line per class
+    and returns the rows."""
     rows = {}
     for label, shapes in (("default", default), ("waves2", waves)):
         for c in shapes:
@@ -773,13 +814,26 @@ def phase_real_size(work, sm_clock_mhz):
     cfg = AssemblyConfig.from_conf_text(get_configuration("Nanopore-May2022"))
     run_dir = os.path.join(work, "ont5mb")
 
-    # The main path: counts to 0 just before, read just after.
+    # The main path: counts to 0 just before, read just after. The trace's
+    # span of computeAlignments is kept for the waves-2 comparison.
+    span = []
+    compute_alignments = Assembler.compute_alignments
+
+    def traced_compute_alignments(self):
+        span.append(len(K.TRACE))
+        compute_alignments(self)
+        span.append(len(K.TRACE))
+
     reset_launches()
     K.TRACE = []
     torch.cuda.reset_peak_memory_stats()
+    Assembler.compute_alignments = traced_compute_alignments
     t0 = time.perf_counter()
-    with waves_env(None), contextlib.redirect_stdout(io.StringIO()):
-        summary = run_assembly([fasta], run_dir, cfg, device="cuda")
+    try:
+        with waves_env(None), contextlib.redirect_stdout(io.StringIO()):
+            summary = run_assembly([fasta], run_dir, cfg, device="cuda")
+    finally:
+        Assembler.compute_alignments = compute_alignments
     wall = time.perf_counter() - t0
     launches = dict(K.LAUNCHES)
     trace, K.TRACE = K.TRACE, None
@@ -842,76 +896,40 @@ def phase_real_size(work, sm_clock_mhz):
     if not aligned.check_strictly_increasing():
         raise AssertionError("alignment ordinals not strictly increasing")
 
-    # Spot check: 127 seeded kept pairs plus the longest, re-aligned with
-    # the plain version on the card; identical stores.
-    rng = np.random.default_rng(7)
-    longest = int(np.argmax(aligned.n_markers0 + aligned.n_markers1))
-    pick = np.unique(np.concatenate([
-        rng.choice(aligned.count, min(127, aligned.count), replace=False), [longest]
-    ]))
-    # computeAlignments builds the same table (a hash of every one of the
-    # 4^k k-mers) on the host before the alignment engine starts.
-    ts = time.perf_counter()
-    ds_table = kmer_table.downsampling_hash_table()
-    log(
-        f"real size: downsampling hash table ({ds_table.shape[0]} k-mers) "
-        f"built on the host in {time.perf_counter() - ts:.2f}s"
-    )
-    ts = time.perf_counter()
-    real = K.banded_align_pairs
-    K.banded_align_pairs = K.banded_align_pairs_plain
-    try:
-        sub = AL.align_candidates(
-            markers, aligned.read_id0[pick], aligned.read_id1[pick],
-            aligned.same_strand[pick], _align_params(cfg), ds_table, device="cuda",
-        )
-    finally:
-        K.banded_align_pairs = real
-    if sub.count != pick.shape[0]:
-        raise AssertionError(f"spot check kept {sub.count} of {pick.shape[0]}")
-    for t, i in enumerate(pick):
-        a0, a1 = aligned.ordinals(int(i))
-        b0, b1 = sub.ordinals(t)
-        if not (np.array_equal(a0, b0) and np.array_equal(a1, b1)):
-            raise AssertionError(f"spot check: pair {i} differs from the plain version")
-    log(
-        f"spot check: {pick.shape[0]} kept pairs (longest {int(aligned.n_markers0[longest])}"
-        f"+{int(aligned.n_markers1[longest])} markers) identical under the plain "
-        f"version on the card ({time.perf_counter() - ts:.1f}s)"
-    )
-    del ds_table, sub
+    spot_check("real size", markers, kmer_table, aligned, cfg)
 
-    # computeAlignments again on the run's Markers and AlignmentCandidates,
-    # with the default route and then with the waves kernel: counts to 0
-    # just before each, read just after.
-    reruns = {}
-    for label, waves in (("default", None), ("waves2", "2")):
-        rerun_dir = os.path.join(work, f"ont5mb-{label}")
-        asm = Assembler(rerun_dir, cfg, device="cuda")
-        asm.reads = ReadStore.from_arrays(store.load_stage("Reads"))
-        asm.kmer_table = kmer_table
-        asm.markers = markers
-        asm.candidates = CandidatePairs.from_arrays(store.load_stage("AlignmentCandidates"))
-        reset_launches()
-        K.TRACE = []
-        t0 = time.perf_counter()
-        with waves_env(waves):
-            asm.compute_alignments()
-        secs = time.perf_counter() - t0
-        rerun_launches = dict(K.LAUNCHES)
-        rerun_trace, K.TRACE = K.TRACE, None
-        log(
-            f"real size computeAlignments again ({label}, SHASTA_TORCH_WAVES="
-            f"{waves or 'unset'}): {secs:.2f}s (main run {times['computeAlignments']:.2f}s), "
-            f"launches {rerun_launches}"
-        )
-        reruns[label] = {
-            "compute_alignments_s": secs, "launches": rerun_launches,
-            "shapes": kernel_classes(rerun_trace, sm_clock_mhz, label), "dir": rerun_dir,
-        }
-        h = stage_hashes(rerun_dir)["Alignments"]
-        if h != stage_hashes(run_dir)["Alignments"]:
-            raise AssertionError(f"Alignments hash differs in the {label} rerun: {h[:12]}")
+    # computeAlignments again on the run's Markers and AlignmentCandidates
+    # with the waves kernel: counts to 0 just before, read just after. Its
+    # classes are those of the main run's computeAlignments.
+    reruns = {"default": {
+        "compute_alignments_s": times["computeAlignments"],
+        "shapes": kernel_classes(trace[span[0]:span[1]], sm_clock_mhz, "default", echo=False),
+    }}
+    rerun_dir = os.path.join(work, "ont5mb-waves2")
+    asm = Assembler(rerun_dir, cfg, device="cuda")
+    asm.reads = ReadStore.from_arrays(store.load_stage("Reads"))
+    asm.kmer_table = kmer_table
+    asm.markers = markers
+    asm.candidates = CandidatePairs.from_arrays(store.load_stage("AlignmentCandidates"))
+    reset_launches()
+    K.TRACE = []
+    t0 = time.perf_counter()
+    with waves_env("2"):
+        asm.compute_alignments()
+    secs = time.perf_counter() - t0
+    rerun_launches = dict(K.LAUNCHES)
+    rerun_trace, K.TRACE = K.TRACE, None
+    log(
+        f"real size computeAlignments again (SHASTA_TORCH_WAVES=2): {secs:.2f}s (main "
+        f"run {times['computeAlignments']:.2f}s), launches {rerun_launches}"
+    )
+    reruns["waves2"] = {
+        "compute_alignments_s": secs, "launches": rerun_launches,
+        "shapes": kernel_classes(rerun_trace, sm_clock_mhz, "waves2"), "dir": rerun_dir,
+    }
+    h = stage_hashes(rerun_dir)["Alignments"]
+    if h != stage_hashes(run_dir)["Alignments"]:
+        raise AssertionError(f"Alignments hash differs in the waves-2 rerun: {h[:12]}")
     waves_launches = reruns["waves2"]["launches"]
     waves_shapes = reruns["waves2"]["shapes"]
     if waves_launches["banded_fwd_waves"] == 0:
@@ -933,20 +951,473 @@ def phase_real_size(work, sm_clock_mhz):
         r.update(totals[label])
     d, w = totals["default"], totals["waves2"]
     log(
-        f"real size computeAlignments kernel device time: default fwd {d['fwd_ms']:.1f} + "
+        f"real size computeAlignments kernel device time: main run fwd {d['fwd_ms']:.1f} + "
         f"tb {d['tb_ms']:.1f} = {d['fwd_ms'] + d['tb_ms']:.1f} ms; waves 2 fwd "
         f"{w['fwd_ms']:.1f} + tb {w['tb_ms']:.1f} = {w['fwd_ms'] + w['tb_ms']:.1f} ms "
         f"(ratio {(w['fwd_ms'] + w['tb_ms']) / (d['fwd_ms'] + d['tb_ms']):.2f}); "
-        f"Alignments hash equal to the main run's in both"
+        f"Alignments hash equal to the main run's"
     )
     return {
-        "launches": launches, "times": times, "wall_s": wall, "peak_bytes": peak,
+        "dir": run_dir, "launches": launches, "times": times, "wall_s": wall,
+        "peak_bytes": peak,
         "peak_rss_kb": summary["peakMemoryUsageKB"],
         "summary": {k: v for k, v in summary.items() if not isinstance(v, (dict, list))},
         "shapes": shapes, "fwd_ms": fwd_ms, "tb_ms": tb_ms, "nominal_cells": nominal,
         "processed_cells": real_cells,
         "reruns": reruns, "by_class": by_class,
     }
+
+# ---------------------------------------------------------------------------
+# Phases 5 to 7
+# ---------------------------------------------------------------------------
+
+
+# tests/test_reference_parity.py:_golden_run_mode2's configuration as
+# overrides: small_config, mode 2, minEdgeCoverage 3, per strand 0,
+# bubble-removal component-size threshold 3.
+MODE2_OVERRIDES = SMALL_OVERRIDES + [
+    "--Assembly.mode", "2", "--MarkerGraph.minEdgeCoverage", "3",
+    "--MarkerGraph.minEdgeCoveragePerStrand", "0",
+    "--Assembly.mode2.bubbleRemoval.componentSizeThreshold", "3",
+]
+
+
+def write_mode2_golden_reads(path):
+    """_golden_run_mode2's reads (tests/torch_common.py:write_mode2_reads):
+    two 15 kb haplotypes with a SNP every 700 bases, 90 + 90 reads of
+    2.5 kb from both strands, seeds 4343 to 4446."""
+    from shasta_tpu_torch.utils import synth
+
+    rng = np.random.default_rng(4343)
+    hap_a = synth.random_genome(15000, seed=4444)
+    hap_b = hap_a.copy()
+    for p in np.arange(350, 15000, 700):
+        hap_b[p] = (hap_b[p] + 1 + rng.integers(0, 3)) % 4
+    reads = synth.sample_reads(hap_a, 90, 2500, seed=4445, both_strands=True)
+    reads += synth.sample_reads(hap_b, 90, 2500, seed=4446, both_strands=True)
+    synth.write_fasta(path, reads)
+
+
+def file_hashes(run_dir, names):
+    out = {}
+    for name in names:
+        with open(os.path.join(run_dir, name), "rb") as f:
+            out[f"file:{name}"] = hashlib.sha256(f.read()).hexdigest()
+    return out
+
+
+def run_cli(label, work, argv, waves=None):
+    """The assemble command with the launch counts reset just before and
+    read just after; returns (run dir, summary, launches, seconds)."""
+    from shasta_tpu_torch.__main__ import main as cli
+    from shasta_tpu_torch.ops import align_kernel as K
+
+    run_dir = os.path.join(work, label)
+    out = io.StringIO()
+    reset_launches()
+    t0 = time.perf_counter()
+    with waves_env(waves), contextlib.redirect_stdout(out):
+        rc = cli(["--command", "assemble", "--assemblyDirectory", run_dir, *argv])
+    secs = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    if rc != 0:
+        raise AssertionError(f"{label}: assemble returned {rc}")
+    return run_dir, json.loads(out.getvalue()), launches, secs
+
+
+def check_card_launches(label, device, waves, launches):
+    """A card run launched banded_tb, and banded_fwd_waves exactly when
+    SHASTA_TORCH_WAVES asked for it; a CPU run launched nothing."""
+    if device == "cpu":
+        if any(launches.values()):
+            raise AssertionError(f"{label}: a kernel launched on the CPU run: {launches}")
+        return
+    if launches["banded_tb"] == 0 or (launches["banded_fwd_waves"] > 0) != bool(waves):
+        raise AssertionError(f"{label}: launches {launches}")
+
+
+def phase_mode2_golden(work):
+    """Phase 5: the mode-2 golden input through the assemble command on
+    the card, on the card under SHASTA_TORCH_WAVES=2, and on the CPU;
+    all 17 values of tests/golden/mode2_stage_hashes.json in each."""
+    fasta = os.path.join(work, "golden-mode2.fasta")
+    write_mode2_golden_reads(fasta)
+    _, conf = golden_inputs(work)
+    with open(GOLDEN_MODE2) as f:
+        pinned = json.load(f)
+    files = [k[len("file:"):] for k in pinned if k.startswith("file:")]
+    out = {}
+    for label, device, waves in (
+        ("mode2-golden-cuda", "cuda", None), ("mode2-golden-cuda-waves2", "cuda", "2"),
+        ("mode2-golden-cpu", "cpu", None),
+    ):
+        run_dir, summary, launches, secs = run_cli(
+            label, work,
+            ["--config", conf, "--input", fasta, "--device", device, *MODE2_OVERRIDES],
+            waves=waves,
+        )
+        got = stage_hashes(run_dir)
+        got.update(file_hashes(run_dir, files))
+        bad = sorted(k for k in pinned if got.get(k) != pinned[k])
+        if bad or len(pinned) != 17:
+            raise AssertionError(f"{label}: values differ from the pinned ones: {bad}")
+        check_card_launches(label, device, waves, launches)
+        out[label] = {"seconds": secs, "launches": launches,
+                      "phased_bubbles": summary["phasedBubbleCount"]}
+        log(
+            f"mode-2 golden assemble --device {device}"
+            f"{' SHASTA_TORCH_WAVES=' + waves if waves else ''}: {secs:.2f}s, "
+            f"{summary['phasedBubbleCount']} of {summary['diploidBubbleCount']} bubbles "
+            f"phased, launches {launches}"
+        )
+    log(
+        "mode-2 golden: all 17 values of mode2_stage_hashes.json (8 stage manifests, "
+        "9 output files) equal the pinned ones in the three runs"
+    )
+    return out
+
+
+def fasta_stats(path):
+    """(sequences, total length, N50) of a FASTA file."""
+    lengths, n = [], 0
+    with open(path) as f:
+        for line in f:
+            if line.startswith(">"):
+                if n or lengths:
+                    lengths.append(n)
+                n = 0
+            else:
+                n += len(line.strip())
+    if n or lengths:
+        lengths.append(n)
+    lengths.sort(reverse=True)
+    total, acc, n50 = sum(lengths), 0, 0
+    for x in lengths:
+        acc += x
+        if 2 * acc >= total:
+            n50 = x
+            break
+    return len(lengths), total, n50
+
+
+def diploid_reads(genome_len, coverage, seeds=(600, 601, 602, 603)):
+    """Haplotype A a random genome; haplotype B A with one substitution
+    every 1,000 bases at a seeded jitter of up to 250; ONT-like reads
+    (phase 4's length model) at ``coverage`` on each haplotype."""
+    from shasta_tpu_torch.utils import synth
+
+    hap_a = synth.random_genome(genome_len, seed=seeds[0])
+    rng = np.random.default_rng(seeds[1])
+    pos = np.arange(500, genome_len - 500, 1000)
+    pos = pos + rng.integers(-250, 251, pos.shape[0])
+    hap_b = hap_a.copy()
+    hap_b[pos] = (hap_b[pos] + 1 + rng.integers(0, 3, pos.shape[0])) % 4
+    kw = dict(median_length=25000, sigma=0.55, min_length=3000)
+    reads = synth.sample_reads_ont(hap_a, coverage, seed=seeds[2], **kw)
+    reads += synth.sample_reads_ont(hap_b, coverage, seed=seeds[3], **kw)
+    return reads, int(pos.shape[0])
+
+
+def log_counts(path):
+    """(secondary edges added, secondary edges split, edges they split
+    into) from a run's performance.log."""
+    added = split = new = 0
+    with open(path) as f:
+        for line in f:
+            if m := re.search(r"Added (\d+) \+ (\d+) secondary edges", line):
+                added = int(m.group(1)) + int(m.group(2))
+            elif m := re.search(r"Split (\d+) secondary edges into (\d+)", line):
+                split, new = int(m.group(1)), int(m.group(2))
+    return added, split, new
+
+
+def phase_mode2_real_size(work, sm_clock_mhz, genome_len=5_000_000, coverage=15.0):
+    """Phase 6: mode 2 at a real size on the card, Nanopore-Phased-May2022
+    verbatim; the launch counts reset just before the run, read just
+    after; 128 kept pairs re-aligned with the plain version."""
+    from shasta_tpu_torch.data.kmers import KmerTable
+    from shasta_tpu_torch.data.markers import MarkerStore
+    from shasta_tpu_torch.data.store import RunStore
+    from shasta_tpu_torch.ops import align as AL
+    from shasta_tpu_torch.ops import align_kernel as K
+    from shasta_tpu_torch.pipeline.assemble import run_assembly
+    from shasta_tpu_torch.pipeline.config import AssemblyConfig
+    from shasta_tpu_torch.pipeline.configurations import get_configuration
+    from shasta_tpu_torch.utils import synth
+
+    t0 = time.perf_counter()
+    reads, n_het = diploid_reads(genome_len, coverage)
+    fasta = os.path.join(work, "diploid.fasta")
+    synth.write_fasta(fasta, reads)
+    log(
+        f"mode 2 real size: two {genome_len / 1e6:.1f} Mb haplotypes, {n_het} "
+        f"heterozygous SNPs; {len(reads)} reads at {coverage:g}x per haplotype, "
+        f"{sum(r.shape[0] for r in reads) / 1e6:.1f} Mb, generated in "
+        f"{time.perf_counter() - t0:.1f}s"
+    )
+    del reads
+    cfg = AssemblyConfig.from_conf_text(get_configuration("Nanopore-Phased-May2022"))
+    run_dir = os.path.join(work, "diploid")
+
+    reset_launches()
+    K.TRACE = []
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with waves_env(None), contextlib.redirect_stdout(io.StringIO()):
+        summary = run_assembly([fasta], run_dir, cfg, device="cuda")
+    wall = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    trace, K.TRACE = K.TRACE, None
+    peak = torch.cuda.max_memory_allocated()
+    times = summary["stageSeconds"]
+    log(f"mode 2 real size run_assembly: {wall:.2f}s wall; stage seconds: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in times.items()))
+    added, split, new = log_counts(os.path.join(run_dir, "performance.log"))
+    strict = summary["markerGraphEdgeCount"] - added - new
+    fa = {name: fasta_stats(os.path.join(run_dir, f"Assembly-{name}.fasta"))
+          for name in ("Phased", "Haploid")}
+    log(
+        f"mode 2 real size: reads {summary['readCount']}, candidates "
+        f"{summary['alignmentCandidateCount']}, alignments {summary['alignmentCount']}; "
+        f"markerGraphMinCoverageUsed {summary['markerGraphMinCoverageUsed']}, marker "
+        f"graph vertices {summary['markerGraphVertexCount']}, strict edges {strict}, "
+        f"secondary edges {added} ({split} split into {new}); bubbles "
+        f"{summary['diploidBubbleCount']}, phased bubbles {summary['phasedBubbleCount']}, "
+        f"phased components {summary['phasedComponentCount']}, bubble chains "
+        f"{summary['bubbleChainCount']}; "
+        + "; ".join(
+            f"Assembly-{name}.fasta {n} sequences, total {total}, N50 {n50}"
+            for name, (n, total, n50) in fa.items()
+        )
+    )
+    shapes = kernel_classes(trace, sm_clock_mhz, "mode 2")
+    fwd_ms = sum(c["device_ms"] for c in shapes if c["kernel"] != "banded_tb")
+    tb_ms = sum(c["device_ms"] for c in shapes if c["kernel"] == "banded_tb")
+    dp_wall = times["flagPalindromicReads"] + times["computeAlignments"]
+    log(
+        f"mode 2 real size launches: {launches}; peak device memory "
+        f"{peak / 2**30:.2f} GiB; kernel device time fwd {fwd_ms:.1f} ms, tb "
+        f"{tb_ms:.1f} ms, busy {(fwd_ms + tb_ms) / 1e3 / dp_wall:.1%} of the two DP "
+        f"stages' {dp_wall:.2f}s"
+    )
+    if launches["banded_fwd"] == 0 or launches["banded_tb"] == 0:
+        raise AssertionError(f"mode 2 real size: a kernel never launched: {launches}")
+    if summary["phasedBubbleCount"] < 1 or fa["Phased"][1] == 0:
+        raise AssertionError(
+            f"mode 2 real size: {summary['phasedBubbleCount']} phased bubbles, "
+            f"Assembly-Phased.fasta {fa['Phased'][1]} bases"
+        )
+    store = RunStore(run_dir, create=False)
+    aligned = AL.AlignmentStore.from_arrays(store.load_stage("Alignments"))
+    spot_check(
+        "mode 2 real size", MarkerStore.from_arrays(store.load_stage("Markers")),
+        KmerTable.from_arrays(store.load_stage("Kmers")), aligned, cfg,
+    )
+    return {
+        "launches": launches, "times": times, "wall_s": wall, "peak_bytes": peak,
+        "summary": {k: v for k, v in summary.items() if not isinstance(v, (dict, list))},
+        "strict_edges": strict, "secondary_edges": added,
+        "secondary_split": [split, new],
+        "fasta": {k: dict(zip(("sequences", "total", "n50"), v)) for k, v in fa.items()},
+        "shapes": shapes, "fwd_ms": fwd_ms, "tb_ms": tb_ms, "coverage": coverage,
+    }
+
+
+def phase_method4_golden(work):
+    """Phase 7 (a): the mode-0 golden input under --Align.alignMethod 4 on
+    the card and on the CPU: equal Alignments manifests, byte-equal
+    FASTA/GFA."""
+    fasta, conf = golden_inputs(work)
+    runs = {}
+    for label, device in (("method4-golden-cuda", "cuda"), ("method4-golden-cpu", "cpu")):
+        run_dir, summary, launches, secs = run_cli(
+            label, work,
+            ["--config", conf, "--input", fasta, "--device", device, *SMALL_OVERRIDES,
+             "--Align.alignMethod", "4"],
+        )
+        check_card_launches(label, device, None, launches)
+        runs[device] = (stage_hashes(run_dir)["Alignments"], file_hashes(run_dir, OUTPUTS))
+        log(
+            f"method 4 golden assemble --device {device}: {secs:.2f}s, "
+            f"{summary['alignmentCount']} alignments, launches {launches}"
+        )
+    if runs["cuda"] != runs["cpu"]:
+        raise AssertionError("method 4 golden: Alignments or FASTA/GFA differ card/CPU")
+    log("method 4 golden: Alignments manifest and FASTA/GFA equal on the card and the CPU")
+
+
+def phase_method4_real_size(ont_dir, sm_clock_mhz, n_pairs=2048):
+    """Phase 7 (b): align_candidates_method4 on the card over the first
+    ``n_pairs`` candidates of phase 4's run, on its own Markers; the host
+    time of align4_bands apart from the kernels'; 128 seeded tasks
+    re-aligned with the plain version on the card."""
+    from shasta_tpu_torch.data.markers import MarkerStore
+    from shasta_tpu_torch.data.store import RunStore
+    from shasta_tpu_torch.ops import align as AL
+    from shasta_tpu_torch.ops import align_kernel as K
+    from shasta_tpu_torch.ops import align_other as AO
+    from shasta_tpu_torch.ops.lowhash import CandidatePairs
+    from shasta_tpu_torch.pipeline.config import AssemblyConfig
+    from shasta_tpu_torch.pipeline.configurations import get_configuration
+
+    store = RunStore(ont_dir, create=False)
+    markers = MarkerStore.from_arrays(store.load_stage("Markers"))
+    cand = CandidatePairs.from_arrays(store.load_stage("AlignmentCandidates"))
+    cfg = AssemblyConfig.from_conf_text(get_configuration("Nanopore-May2022"))
+    ca = cfg.align
+    sel = slice(0, min(n_pairs, cand.count))
+    bands_s = [0.0]
+    grouped = {}
+    real_bands, real_grouped = AO.align4_bands, AL._grouped_run
+
+    def timed_bands(*args, **kwargs):
+        t = time.perf_counter()
+        try:
+            return real_bands(*args, **kwargs)
+        finally:
+            bands_s[0] += time.perf_counter() - t
+
+    def recorded_grouped(*args, **kwargs):
+        out = real_grouped(*args, **kwargs)
+        grouped["args"], grouped["out"] = args, out
+        return out
+
+    AO.align4_bands, AL._grouped_run = timed_bands, recorded_grouped
+    reset_launches()
+    K.TRACE = []
+    t0 = time.perf_counter()
+    try:
+        st = AO.align_candidates_method4(
+            markers, cand.read_id0[sel], cand.read_id1[sel], cand.same_strand[sel],
+            _align_params(cfg), delta_x=ca.align4_delta_x, delta_y=ca.align4_delta_y,
+            min_entry_count=ca.align4_min_entry_count_per_cell,
+            max_distance_from_boundary=ca.align4_max_distance_from_boundary,
+            device="cuda",
+        )
+        torch.cuda.synchronize()
+    finally:
+        AO.align4_bands, AL._grouped_run = real_bands, real_grouped
+    secs = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    trace, K.TRACE = K.TRACE, None
+    a_rows, b_rows, bmins, widths, params = grouped["args"][:5]
+    results, metrics = grouped["out"]
+    shapes = kernel_classes(trace, sm_clock_mhz, "method 4")
+    dev_ms = sum(c["device_ms"] for c in shapes)
+    log(
+        f"method 4 real size: {sel.stop} candidates, {len(a_rows)} bands aligned, "
+        f"{st.count} alignments kept; {secs:.2f}s, of which align4_bands (host) "
+        f"{bands_s[0]:.2f}s; launches {launches}, kernel device time {dev_ms:.1f} ms"
+    )
+    if launches["banded_fwd"] == 0 or launches["banded_tb"] == 0 or st.count == 0:
+        raise AssertionError(f"method 4 real size: launches {launches}, kept {st.count}")
+    # 128 seeded tasks through the grouped route with the plain version.
+    pick = np.sort(np.random.default_rng(8).choice(len(a_rows), min(128, len(a_rows)), replace=False))
+    t0 = time.perf_counter()
+    with plain_kernels():
+        sub, sub_met = AL._grouped_run(
+            [a_rows[i] for i in pick], [b_rows[i] for i in pick], bmins[pick],
+            widths[pick], params, device="cuda",
+        )
+    for t, i in enumerate(pick):
+        if not (np.array_equal(sub[t][0], results[i][0])
+                and np.array_equal(sub[t][1], results[i][1])
+                and np.array_equal(sub_met[t], metrics[i])):
+            raise AssertionError(f"method 4 real size: task {i} differs from the plain version")
+    log(
+        f"method 4 spot check: {pick.shape[0]} tasks identical under the plain version "
+        f"on the card ({time.perf_counter() - t0:.1f}s)"
+    )
+    return {"candidates": sel.stop, "tasks": len(a_rows), "kept": st.count,
+            "seconds": secs, "align4_bands_s": bands_s[0], "launches": launches,
+            "shapes": shapes, "device_ms": dev_ms}
+
+
+def phase_iterative(work):
+    """Phase 7 (c): tests/test_iterative.py's input (20 kb genome, seed 71,
+    120 reads of 3 kb, 2 iterations) on the card and on the CPU: every
+    stage manifest and the FASTA/GFA equal."""
+    from shasta_tpu_torch.utils import synth
+
+    fasta = os.path.join(work, "iterative.fasta")
+    genome = synth.random_genome(20000, seed=71)
+    synth.write_fasta(fasta, synth.sample_reads(genome, 120, 3000, seed=72, both_strands=True))
+    _, conf = golden_inputs(work)
+    runs = {}
+    for label, device in (("iterative-cuda", "cuda"), ("iterative-cpu", "cpu")):
+        run_dir, summary, launches, secs = run_cli(
+            label, work,
+            ["--config", conf, "--input", fasta, "--device", device, *SMALL_OVERRIDES,
+             "--Assembly.iterative", "true", "--Assembly.iterative.iterationCount", "2"],
+        )
+        check_card_launches(label, device, None, launches)
+        if "iterativeAssembly-1" not in summary["stageSeconds"]:
+            raise AssertionError(f"{label}: the second refinement round did not run")
+        runs[device] = (stage_hashes(run_dir), file_hashes(run_dir, OUTPUTS))
+        log(
+            f"iterative assemble --device {device}: {secs:.2f}s, "
+            f"{summary['assembledSegmentCount']} segments, "
+            f"{summary['totalAssembledSegmentLength']} bases, launches {launches}"
+        )
+    if runs["cuda"] != runs["cpu"]:
+        raise AssertionError("iterative: stage manifests or FASTA/GFA differ card/CPU")
+    log("iterative: every stage manifest and the FASTA/GFA equal on the card and the CPU")
+
+
+# The downsampling hash table of every k-mer, by k: a function of k alone,
+# built once by KmerTable.downsampling_hash_table for the spot checks of
+# phases 4 and 6.
+_DS_TABLES = {}
+
+
+def spot_check(label, markers, kmer_table, aligned, cfg):
+    """127 seeded kept pairs plus the longest of a run's Alignments,
+    re-aligned with the plain version on the card: identical ordinals."""
+    from shasta_tpu_torch.ops import align as AL
+    from shasta_tpu_torch.ops import align_kernel as K
+
+    rng = np.random.default_rng(7)
+    longest = int(np.argmax(aligned.n_markers0 + aligned.n_markers1))
+    pick = np.unique(np.concatenate([
+        rng.choice(aligned.count, min(127, aligned.count), replace=False), [longest]
+    ]))
+    ts = time.perf_counter()
+    if kmer_table.k not in _DS_TABLES:
+        _DS_TABLES[kmer_table.k] = kmer_table.downsampling_hash_table()
+        log(f"downsampling hash table built on the host in {time.perf_counter() - ts:.2f}s")
+    ds_table = _DS_TABLES[kmer_table.k]
+    ts = time.perf_counter()
+    with plain_kernels():
+        sub = AL.align_candidates(
+            markers, aligned.read_id0[pick], aligned.read_id1[pick],
+            aligned.same_strand[pick], _align_params(cfg), ds_table, device="cuda",
+        )
+    if sub.count != pick.shape[0]:
+        raise AssertionError(f"{label} spot check kept {sub.count} of {pick.shape[0]}")
+    for t, i in enumerate(pick):
+        a0, a1 = aligned.ordinals(int(i))
+        b0, b1 = sub.ordinals(t)
+        if not (np.array_equal(a0, b0) and np.array_equal(a1, b1)):
+            raise AssertionError(f"{label} spot check: pair {i} differs from the plain version")
+    log(
+        f"{label} spot check: {pick.shape[0]} kept pairs (longest "
+        f"{int(aligned.n_markers0[longest])}+{int(aligned.n_markers1[longest])} markers) "
+        f"identical under the plain version on the card ({time.perf_counter() - ts:.1f}s)"
+    )
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """banded_align_pairs replaced by its plain version for the duration
+    (the comparisons' launches then count nowhere)."""
+    from shasta_tpu_torch.ops import align_kernel as K
+
+    real = K.banded_align_pairs
+    K.banded_align_pairs = K.banded_align_pairs_plain
+    try:
+        yield
+    finally:
+        K.banded_align_pairs = real
 
 
 def _align_params(cfg):
@@ -969,15 +1440,69 @@ def _align_params(cfg):
 
 def main() -> int:
     t_start = time.perf_counter()
-    sm_clock, build = phase_device_and_build()
-    kernels = phase_kernels(sm_clock)
-    blocks = phase_blocks_per_sm()
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
-        phase_golden(work)
-        real = phase_real_size(work, sm_clock)
+    seconds = {}
+    out = {}
 
-    # The kernel line reports each kernel at the listed shape whose
-    # class took the most banded_fwd time on the main path.
+    def run(n, fn, *a, **kw):
+        t0 = time.perf_counter()
+        r = fn(*a, **kw)
+        seconds[n] = seconds.get(n, 0.0) + time.perf_counter() - t0
+        log(f"phase {n}: {seconds[n]:.1f}s")
+        return r
+
+    sm_clock, build = run(1, phase_device_and_build)
+    kernels = run(2, phase_kernels, sm_clock)
+    blocks = run(2, phase_blocks_per_sm)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
+        run(3, phase_golden, work)
+        real = run(4, phase_real_size, work, sm_clock)
+        out["mode2_golden"] = run(5, phase_mode2_golden, work)
+        out["mode2_real_size"] = run(6, phase_mode2_real_size, work, sm_clock)
+        run(7, phase_method4_golden, work)
+        out["method4_real_size"] = run(7, phase_method4_real_size, real["dir"], sm_clock)
+        run(7, phase_iterative, work)
+    log("phase seconds: " + ", ".join(f"{n} {t:.1f}" for n, t in sorted(seconds.items())))
+    card = smi("name,power.limit")
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
+        json.dump(
+            {"card": card, "sm_clock_mhz": sm_clock, "build": build,
+             "kernels": [dict(v) for v in kernels.values()],
+             "blocks_per_sm": blocks, "real_size": real, **out,
+             "phase_seconds": seconds, "seconds": time.perf_counter() - t_start},
+            f, indent=1,
+        )
+    log(f"total {time.perf_counter() - t_start:.1f}s")
+    line = kernel_line(kernels, real, out)
+    print(card)
+    print(json.dumps(line))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}), flush=True)
+    return 0
+
+
+def kernel_line(kernels, real, out):
+    """The {"kernels": [...]} line. Each kernel's launches are summed over
+    the paths that ran it, each counted from 0 just before its run: the
+    mode-0 real-size run (phase 4), its computeAlignments rerun under
+    waves 2, the mode-2 real-size run (phase 6), the mode-2 golden run
+    under waves 2 (phase 5) and method 4 at a real size (phase 7).
+    Times are phase 2's at the listed shape whose class took the most
+    banded_fwd time on the mode-0 run."""
+    paths = {
+        "mode0": real["launches"],
+        "mode0-waves2": real["reruns"]["waves2"]["launches"],
+        "mode2": out["mode2_real_size"]["launches"],
+        "mode2-waves2": out["mode2_golden"]["mode2-golden-cuda-waves2"]["launches"],
+        "method4": out["method4_real_size"]["launches"],
+    }
+
+    def launched(name):
+        ran = [p for p, launches in paths.items() if launches[name]]
+        return {"launches": sum(paths[p][name] for p in ran), "paths": ran}
+
     fwd_ms = {}
     for c in real["shapes"]:
         if c["kernel"] == "banded_fwd":
@@ -997,25 +1522,25 @@ def main() -> int:
     )
     rw = kernels[rep_w]
     csrc = "shasta_tpu_torch/csrc/"
-    line = {"kernels": [
+    return {"kernels": [
         {"name": "banded_fwd", "route": "cuda",
          "source": csrc + ("banded_fwd_diag.cu" if r["body"] == "diag" else "banded_align.cu"),
          "replaces": "shasta_tpu/ops/align_pallas.py:156,581",
-         "launches": real["launches"]["banded_fwd"], "max_abs_err": r["max_abs_err"],
+         **launched("banded_fwd"), "max_abs_err": r["max_abs_err"],
          "ms": r["fwd_ms"], "plain_ms": r["fwd_plain_ms"],
          "bound_ms": r["fwd_bound_ms"], "bound_by": r["fwd_bound_by"],
          "library_ms": None, "shape": dict(shape, body=r["body"]),
          "row_scan_ms": r["rows_ms"]},
         {"name": "banded_tb", "route": "cuda", "source": csrc + "banded_tb.cu",
          "replaces": "shasta_tpu/ops/align_pallas.py:296,714",
-         "launches": real["launches"]["banded_tb"], "max_abs_err": r["max_abs_err"],
+         **launched("banded_tb"), "max_abs_err": r["max_abs_err"],
          "ms": r["tb_ms"], "plain_ms": r["tb_plain_ms"],
          "bound_ms": r["tb_bound_ms"], "bound_by": r["tb_bound_by"],
          "library_ms": None, "shape": shape},
         {"name": "banded_fwd_waves", "route": "cuda",
          "source": csrc + "banded_fwd_diag.cu",
          "replaces": "shasta_tpu/ops/align_pallas.py:340",
-         "launches": real["reruns"]["waves2"]["launches"]["banded_fwd_waves"],
+         **launched("banded_fwd_waves"),
          "max_abs_err": max(k["waves_max_abs_err"] for k in kernels.values()),
          "ms": rw["waves_ms"][2], "plain_ms": rw["fwd_plain_ms"],
          "bound_ms": rw["fwd_bound_ms"], "bound_by": rw["fwd_bound_by"],
@@ -1023,24 +1548,6 @@ def main() -> int:
          "shape": {"LA": rep_w[0], "W": rep_w[1], "B": rw["B"], "waves": 2},
          "waves4_ms": rw["waves_ms"][4], "banded_fwd_ms": rw["fwd_ms"]},
     ]}
-    card = smi("name,power.limit")
-    os.makedirs(OUT_DIR, exist_ok=True)
-    with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
-        json.dump(
-            {"card": card, "sm_clock_mhz": sm_clock, "build": build,
-             "kernels": [dict(v) for v in kernels.values()],
-             "blocks_per_sm": blocks, "real_size": real,
-             "seconds": time.perf_counter() - t_start},
-            f, indent=1,
-        )
-    log(f"total {time.perf_counter() - t_start:.1f}s")
-    print(card)
-    print(json.dumps(line))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count(),
-    }}), flush=True)
-    return 0
 
 
 if __name__ == "__main__":

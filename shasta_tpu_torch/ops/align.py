@@ -524,6 +524,92 @@ def _entry_to_flat(entry):
     return met, rows, cols, vals.cpu().numpy().astype(np.int64)
 
 
+# ---------------------------------------------------------------------------
+# Grouped route: pairs given as host rows (method 4)
+# ---------------------------------------------------------------------------
+
+
+def _pad_rows(rows: List[np.ndarray], width: int, pad: int) -> np.ndarray:
+    out = np.full((len(rows), width), pad, dtype=np.int32)
+    for i, r in enumerate(rows):
+        out[i, : r.shape[0]] = r
+    return out
+
+
+def _dispatch_grouped(
+    a_rows: List[np.ndarray],
+    b_rows: List[np.ndarray],
+    band_mins: np.ndarray,
+    widths: np.ndarray,
+    params: AlignParams,
+    device,
+):
+    """Group pairs into (LA, LB, W) classes, taken in sorted order, and
+    launch every batch of each class. Each band is centred inside its
+    class width. Returns [(pair indices, pending "p2" entry)], one per
+    batch."""
+    order: Dict[Tuple[int, int, int], List[int]] = {}
+    for i in range(len(a_rows)):
+        key = (
+            _bucket(a_rows[i].shape[0], _LEN_BUCKETS),
+            _bucket(b_rows[i].shape[0], _LEN_BUCKETS),
+            _bucket(int(widths[i]), _W_BUCKETS),
+        )
+        order.setdefault(key, []).append(i)
+
+    def put(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+    dispatched = []
+    for (LA, LB, W), idxs in sorted(order.items()):
+        bm_all = np.asarray(
+            [int(band_mins[i]) - (W - int(widths[i])) // 2 for i in idxs], np.int32
+        )
+        for lo, hi in _batch_plan(len(idxs), LA, LB, W):
+            sel = idxs[lo:hi]
+            fused = AK.banded_align_pairs(
+                put(_pad_rows([a_rows[i] for i in sel], LA, -1)),
+                put(np.asarray([a_rows[i].shape[0] for i in sel], np.int32)),
+                put(_pad_rows([b_rows[i] for i in sel], LB, -2)),
+                put(np.asarray([b_rows[i].shape[0] for i in sel], np.int32)),
+                put(bm_all[lo:hi]),
+                LA=LA, LB=LB, W=W, match=params.match_score,
+                mismatch=params.mismatch_score, gap=params.gap_score,
+            )
+            dispatched.append((sel, ("p2", fused, hi - lo)))
+    return dispatched
+
+
+def _grouped_run(
+    a_rows: List[np.ndarray],
+    b_rows: List[np.ndarray],
+    band_mins: np.ndarray,
+    widths: np.ndarray,
+    params: AlignParams,
+    device="cuda",
+):
+    """Align pairs of host rows in their (LA, LB, W) classes. Returns
+    (results, metrics): results[i] the matched (ord0, ord1) uint32
+    ordinals of pair i in path order, metrics (n, 10) int64 rows
+    [count, first0, last0, first1, last1, min_off, max_off, max_skip,
+    max_drift, score] from :func:`align_kernel.metrics_from_mj`.
+    ``device``: "cuda" (the kernels) unless the caller asks for "cpu"."""
+    device = AK.resolve_device(device)
+    n = len(a_rows)
+    results: List[Tuple[np.ndarray, np.ndarray]] = [None] * n  # type: ignore[list-item]
+    metrics = np.zeros((n, 10), np.int64)
+    for idxs, entry in _dispatch_grouped(
+        a_rows, b_rows, band_mins, widths, params, device
+    ):
+        met, rows, cols, vals = _entry_to_flat(entry)
+        starts = np.searchsorted(rows, np.arange(len(idxs) + 1))
+        for t, i in enumerate(idxs):
+            lo, hi = starts[t], starts[t + 1]
+            results[i] = (cols[lo:hi].astype(np.uint32), vals[lo:hi].astype(np.uint32))
+        metrics[np.asarray(idxs)] = met
+    return results, metrics
+
+
 class _CsrStreamingRunner:
     """Accumulates pair row ids (into a shared CSR of marker sequences)
     per (LA, LB, W) class and dispatches a class as soon as it holds

@@ -399,50 +399,61 @@ def banded_fwd_plain(
     of shasta_tpu/ops/align.py:_banded_forward, with the Pallas
     kernel's packed 2-bit dirs layout and best-end accumulator). Codes
     of rows beyond a pair's a_len are 0, like the kernel's unwritten
-    bits of a partly filled word."""
+    bits of a partly filled word.
+
+    What does not depend on the previous row (the b gather, the match,
+    the validity and end masks) is computed for the 16 rows of a dirs
+    word at once, (B, 16, W); the loop carries only the recurrence."""
     B = a.shape[0]
     dev = a.device
     i32 = torch.int32
     d_idx = torch.arange(W, dtype=i32, device=dev)[None, :]
+    d3 = d_idx[:, None, :]
     dgap = d_idx * gap
     neg_col = torch.full((B, 1), NEG_INF, dtype=i32, device=dev)
-    bm = band_min[:, None]
-    bl = b_len[:, None]
-    al = a_len[:, None]
-    j0 = bm + d_idx
-    prev = torch.where((j0 >= 0) & (j0 <= bl), 0, NEG_INF).to(i32)
+    bm = band_min[:, None, None]
+    bl = b_len[:, None, None]
+    al = a_len[:, None, None]
+    j0 = band_min[:, None] + d_idx
+    prev = torch.where((j0 >= 0) & (j0 <= b_len[:, None]), 0, NEG_INF).to(i32)
     bv = torch.full((B, W), NEG_INF, dtype=i32, device=dev)
     bim = torch.zeros((B, W), dtype=i32, device=dev)
     words = torch.zeros((B, n_words(LA), W), dtype=torch.int64, device=dev)
-    for i in range(1, LA + 1):
-        j = bm + i + d_idx
+    for w in range(n_words(LA)):
+        R = min(16, LA - 16 * w)
+        ii = torch.arange(16 * w + 1, 16 * w + R + 1, dtype=i32, device=dev)[None, :, None]
+        j = bm + ii + d3
         jm1 = j - 1
         inb = (jm1 >= 0) & (jm1 < LB)
-        bj = torch.gather(b, 1, jm1.clamp(0, max(LB - 1, 0)).to(torch.int64))
-        bj = torch.where(inb, bj, -2)
-        m = bj == a[:, i - 1 : i]
+        idx = jm1.clamp(0, max(LB - 1, 0)).to(torch.int64).reshape(B, R * W)
+        bj = torch.where(inb, torch.gather(b, 1, idx).reshape(B, R, W), -2)
+        m = bj == a[:, 16 * w : 16 * w + R, None]
         sub = torch.where(m, match, mismatch).to(i32)
-        valid = (j >= 0) & (j <= bl) & (i <= al)
+        valid = (j >= 0) & (j <= bl) & (ii <= al)
         at_j0 = j == 0
-        prev_up = torch.cat([prev[:, 1:], neg_col], dim=1)
-        diag = prev + sub
-        base = torch.maximum(diag, prev_up + gap)
-        base = torch.where(at_j0, torch.clamp(base, min=0), base)
-        run = torch.cummax(base - dgap, dim=1).values.clamp(min=NEG_INF)
-        V = torch.where(valid, run + dgap, NEG_INF).to(i32)
-        code = torch.where(
-            V > base, LEFT,
-            torch.where(base == diag, torch.where(m, D_MATCH, D_MISMATCH), UP),
-        )
-        code = torch.where(al >= i, code, 0).to(torch.int64)
-        words[:, (i - 1) // 16, :] |= code << (2 * ((i - 1) % 16))
         iscol = (j == bl) & valid
-        endm = iscol | ((al == i) & valid)
-        mv = torch.where(endm, V, NEG_INF)
-        bt = mv > bv
-        bv = torch.where(bt, mv, bv)
-        bim = torch.where(bt, torch.where(iscol, 2 * i, 2 * i + 1), bim).to(i32)
-        prev = V
+        endm = iscol | ((al == ii) & valid)
+        end_key = torch.where(iscol, 2 * ii, 2 * ii + 1).to(i32)
+        codes = torch.zeros((B, R, W), dtype=torch.int64, device=dev)
+        for r in range(R):
+            prev_up = torch.cat([prev[:, 1:], neg_col], dim=1)
+            diag = prev + sub[:, r]
+            base = torch.maximum(diag, prev_up + gap)
+            base = torch.where(at_j0[:, r], torch.clamp(base, min=0), base)
+            run = torch.cummax(base - dgap, dim=1).values.clamp(min=NEG_INF)
+            V = torch.where(valid[:, r], run + dgap, NEG_INF).to(i32)
+            codes[:, r] = torch.where(
+                V > base, LEFT,
+                torch.where(base == diag, torch.where(m[:, r], D_MATCH, D_MISMATCH), UP),
+            )
+            mv = torch.where(endm[:, r], V, NEG_INF)
+            bt = mv > bv
+            bv = torch.where(bt, mv, bv)
+            bim = torch.where(bt, end_key[:, r], bim)
+            prev = V
+        codes = torch.where(al >= ii, codes, 0)
+        shift = 2 * torch.arange(R, dtype=torch.int64, device=dev)[None, :, None]
+        words[:, w, :] = (codes << shift).sum(dim=1)
     # Best end: max score, then min (2*row + not-column), then min lane.
     maxv = bv.max(dim=1, keepdim=True).values
     cand = bv == maxv
@@ -458,34 +469,41 @@ def banded_tb_plain(dirs, bi, bd, band_min, *, LA, W):
     """The traceback as a row loop of int32 torch ops (the counterpart
     of _kernel's traceback, align_pallas.py:296-337): each row resolves
     at the greatest non-LEFT lane at or below the entry lane, with the
-    j == 0 cell read as the terminal code 4."""
+    j == 0 cell read as the terminal code 4. The codes of a dirs word's
+    16 rows are unpacked at once, and their matches read off after the
+    walk has crossed them; the loop carries the walk."""
     B = dirs.shape[0]
     dev = dirs.device
     i32 = torch.int32
     d_idx = torch.arange(W, dtype=i32, device=dev)[None, :]
-    d8 = d_idx * 8
+    d3 = d_idx[:, None, :]
     entry = torch.full((B, 1), -1, dtype=i32, device=dev)
-    jb = (band_min + LA)[:, None].to(i32)
-    bi = bi[:, None]
     bd = bd[:, None]
     mj = torch.empty((B, LA), dtype=i32, device=dev)
-    for i in range(LA, 0, -1):
-        entry = torch.where(bi == i, bd, entry)
-        word = dirs[:, (i - 1) // 16, :]
-        code = (word >> (2 * ((i - 1) % 16))) & 3
-        adj = torch.where(jb + d_idx == 0, 4, code)
-        elig = (d_idx <= entry) & (adj != LEFT)
-        kmax = torch.where(elig, d8 + adj, -1).max(dim=1, keepdim=True).values
-        exit_d = kmax >> 3
-        acode = kmax & 7
-        j_exit = jb + exit_d
-        is_match = (acode == D_MATCH) & (j_exit > 0)
-        mj[:, i - 1] = torch.where(is_match, j_exit - 1, -1)[:, 0]
-        entry = torch.where(
-            acode <= D_MISMATCH, exit_d, torch.where(acode == UP, exit_d + 1, -1)
-        )
-        entry = torch.where(entry >= W, -1, entry).to(i32)
-        jb = jb - 1
+    for w in range(n_words(LA) - 1, -1, -1):
+        R = min(16, LA - 16 * w)
+        ii = torch.arange(16 * w + 1, 16 * w + R + 1, dtype=i32, device=dev)[None, :]
+        code = (dirs[:, w, None, :] >> (2 * (ii - 1) % 32)[:, :, None]) & 3
+        # jb: the column of lane 0 on row i, band_min + i.
+        jb = band_min[:, None] + ii
+        adj = torch.where(jb[:, :, None] + d3 == 0, 4, code)
+        key = torch.where(adj != LEFT, d3 * 8 + adj, -1).to(i32)
+        start = bi[:, None] == ii
+        kbuf = torch.empty((B, R), dtype=i32, device=dev)
+        for r in range(R - 1, -1, -1):
+            entry = torch.where(start[:, r : r + 1], bd, entry)
+            kmax = torch.where(d_idx <= entry, key[:, r], -1).max(dim=1, keepdim=True).values
+            kbuf[:, r : r + 1] = kmax
+            exit_d = kmax >> 3
+            acode = kmax & 7
+            entry = torch.where(
+                acode <= D_MISMATCH, exit_d, torch.where(acode == UP, exit_d + 1, -1)
+            )
+            entry = torch.where(entry >= W, -1, entry).to(i32)
+        # Each row's match: its exit column, where it left on a match.
+        j_exit = jb + (kbuf >> 3)
+        is_match = ((kbuf & 7) == D_MATCH) & (j_exit > 0)
+        mj[:, 16 * w : 16 * w + R] = torch.where(is_match, j_exit - 1, -1)
     return mj
 
 

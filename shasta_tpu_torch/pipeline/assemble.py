@@ -1,19 +1,20 @@
-"""The end-to-end mode-0 assembly pipeline.
+"""The end-to-end assembly pipeline, modes 0 and 2.
 
 Counterpart of ``shasta_tpu/pipeline/assemble.py``: the stage-by-stage
-``Assembler`` API and ``run_assembly`` (reference: srcMain/main.cpp:516-830
-and mode0Assembly at :845-1045), addReads through the GFA/FASTA output.
+``Assembler`` API and ``run_assembly`` (reference: srcMain/main.cpp:516-830,
+mode0Assembly at :845-1045 and mode2Assembly at :1049), addReads through
+the GFA/FASTA output.
 Every stage persists its outputs to the run directory's stage store in
 the JAX package's ``Data/`` format, so a run directory written by either
 package can be reattached by the other
 (``cls.from_arrays(store.load_stage(name))`` for each stage).
 
 The alignment DP runs on the ``device`` (CUDA kernels, or their plain
-PyTorch version on the CPU); every other stage is host code (numpy and
-the native library), as in the JAX package. Not ported yet: alignment
-methods 0, 1 and 4 and iterative assembly (ROADMAP.md item 9), modes 2
-and 3 (items 10 and 11), the mesh (item 13); each raises
-``NotImplementedError``.
+PyTorch version on the CPU): method 3's engine, method 4's grouped
+route and the palindrome pass. Methods 0 and 1, iterative assembly and
+every other stage are host code (numpy and the native library), as in
+the JAX package. Not ported yet: mode 3's assembly (ROADMAP.md item 11)
+raises ``NotImplementedError``; the mesh (item 13) is left out.
 """
 
 from __future__ import annotations
@@ -70,17 +71,11 @@ def auto_min_coverage(
         return fallback
 
 
-def _not_ported(what: str, item: int, module: str) -> NotImplementedError:
+def _mode3_not_ported() -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md, modules to port, item "
-        f"{item}: {module})"
+        "Assembly.mode 3 is not ported yet (ROADMAP.md, modules to port, "
+        "item 11: graph/mode3_path.py, graph/mode3_pathgraph.py)"
     )
-
-
-def _mode_not_ported(mode: int) -> NotImplementedError:
-    if mode == 2:
-        return _not_ported("Assembly.mode 2", 10, "graph/mode2.py")
-    return _not_ported(f"Assembly.mode {mode}", 11, "graph/mode3.py")
 
 
 class Assembler:
@@ -125,7 +120,7 @@ class Assembler:
     _MEM_STORES = (
         "reads", "markers", "candidates", "alignments", "read_graph",
         "marker_graph", "assembly_graph", "vertex_repeats",
-        "edge_consensus",
+        "edge_consensus", "mode2_graph",
     )
 
     def _memory_inventory(self) -> str:
@@ -416,11 +411,6 @@ class Assembler:
     def compute_alignments(self) -> None:
         ca = self.config.align
         with self.log.stage("computeAlignments"):
-            if ca.align_method in (0, 1, 4):
-                raise _not_ported(
-                    f"Align.alignMethod {ca.align_method}", 9,
-                    "ops/align_other.py",
-                )
             params = AlignParams(
                 match_score=ca.match_score,
                 mismatch_score=ca.mismatch_score,
@@ -435,17 +425,51 @@ class Assembler:
                 max_trim=ca.max_trim,
                 suppress_containments=ca.suppress_containments,
             )
-            # Method 3: band discovery from downsampled markers feeding
-            # the banded DP engine.
-            self.alignments = align_candidates(
-                self.markers,
-                self.candidates.read_id0,
-                self.candidates.read_id1,
-                self.candidates.same_strand,
-                params,
-                self.kmer_table.downsampling_hash_table(),
-                device=self.device,
-            )
+            if ca.align_method in (0, 1):
+                # Legacy/debug methods, host implementation.
+                from shasta_tpu_torch.ops.align_other import align_candidates_method
+
+                self.alignments = align_candidates_method(
+                    self.markers,
+                    self.candidates.read_id0,
+                    self.candidates.read_id1,
+                    self.candidates.same_strand,
+                    params,
+                    ca.align_method,
+                    max_marker_frequency=ca.max_marker_frequency,
+                )
+            elif ca.align_method == 4:
+                # Sparse cell analysis finds the bands; the same
+                # batched banded DP engine aligns them
+                # (reference: Align4.cpp).
+                from shasta_tpu_torch.ops.align_other import align_candidates_method4
+
+                self.alignments = align_candidates_method4(
+                    self.markers,
+                    self.candidates.read_id0,
+                    self.candidates.read_id1,
+                    self.candidates.same_strand,
+                    params,
+                    delta_x=ca.align4_delta_x,
+                    delta_y=ca.align4_delta_y,
+                    min_entry_count=ca.align4_min_entry_count_per_cell,
+                    max_distance_from_boundary=(
+                        ca.align4_max_distance_from_boundary
+                    ),
+                    device=self.device,
+                )
+            else:
+                # Method 3: band discovery from downsampled markers
+                # feeding the banded DP engine.
+                self.alignments = align_candidates(
+                    self.markers,
+                    self.candidates.read_id0,
+                    self.candidates.read_id1,
+                    self.candidates.same_strand,
+                    params,
+                    self.kmer_table.downsampling_hash_table(),
+                    device=self.device,
+                )
             # reference: Alignment::checkStrictlyIncreasing
             # (src/Alignment.hpp:48), enforced after every compute.
             if not self.alignments.check_strictly_increasing():
@@ -669,8 +693,11 @@ class Assembler:
 
     def create_marker_graph_edges(self) -> None:
         cm = self.config.marker_graph
-        if self.config.assembly.mode in (2, 3):
-            raise _mode_not_ported(self.config.assembly.mode)
+        if self.config.assembly.mode == 3:
+            raise _mode3_not_ported()
+        if self.config.assembly.mode == 2:
+            self._create_marker_graph_edges_mode2()
+            return
         with self.log.stage("createMarkerGraphEdges"):
             MG.create_marker_graph_edges(self.markers, self.marker_graph)
         MG.audit_strand_symmetry(self.marker_graph, "edge creation")
@@ -700,6 +727,47 @@ class Assembler:
                 int(x) for x in str(cm.simplify_max_length).split(",") if x
             ]
             simplify_marker_graph(self.marker_graph, max_lengths)
+        self.store.save_stage("MarkerGraph", self.marker_graph.arrays())
+
+    def _create_marker_graph_edges_mode2(self) -> None:
+        """Mode 2's edges: strict edges preserve heterozygous bubbles
+        (reference: createMarkerGraphEdgesStrict), then secondary edges
+        and their split, and prune; no transitive reduction (reference:
+        mode2Assembly, srcMain/main.cpp:1049)."""
+        from shasta_tpu_torch.graph import mode2 as M2
+
+        cm = self.config.marker_graph
+        with self.log.stage("createMarkerGraphEdgesStrict"):
+            M2.create_marker_graph_edges_strict(
+                self.reads,
+                self.markers,
+                self.marker_graph,
+                min_edge_coverage=cm.min_edge_coverage,
+                min_edge_coverage_per_strand=cm.min_edge_coverage_per_strand,
+            )
+        if cm.secondary_edges:
+            with self.log.stage("createMarkerGraphSecondaryEdges"):
+                n1 = M2.create_marker_graph_secondary_edges(
+                    self.markers, self.marker_graph,
+                    max_skip=cm.secondary_edges_max_skip, aggressive=False,
+                )
+                n2 = M2.create_marker_graph_secondary_edges(
+                    self.markers, self.marker_graph,
+                    max_skip=cm.secondary_edges_max_skip, aggressive=True,
+                )
+                self.log.line(f"Added {n1} + {n2} secondary edges.")
+            with self.log.stage("splitMarkerGraphSecondaryEdges"):
+                # (reference: splitMarkerGraphSecondaryEdges after
+                # secondary edge creation, Mode2Assembly protocol)
+                n_split, n_new = M2.split_marker_graph_secondary_edges(
+                    self.reads, self.markers, self.marker_graph,
+                    cm.secondary_edges_split_error_rate_threshold,
+                    cm.secondary_edges_split_min_coverage,
+                )
+                self.log.line(f"Split {n_split} secondary edges into {n_new}.")
+        with self.log.stage("pruneMarkerGraphStrongSubgraph"):
+            MG.prune(self.marker_graph, iteration_count=cm.prune_iteration_count)
+        MG.audit_strand_symmetry(self.marker_graph, "strict edge creation")
         self.store.save_stage("MarkerGraph", self.marker_graph.arrays())
 
     def assemble_mode0(self) -> None:
@@ -756,6 +824,137 @@ class Assembler:
                 self.edge_consensus,
             )
         self.store.save_stage("AssemblyGraph", self.assembly_graph.arrays())
+
+    def assemble_mode2(self) -> Dict:
+        """Mode 2: the full AssemblyGraph2 pipeline — bubbles,
+        superbubble resolution, weak/degenerate branch removal, bad
+        bubble removal, hierarchical phasing, bubble chains, phasing
+        regions, and the Detailed/Haploid/Phased output family
+        (reference: mode2Assembly, srcMain/main.cpp:1049 +
+        src/AssemblyGraph2.cpp:44-233)."""
+        from shasta_tpu_torch.graph import mode2_graph as M2G
+        from shasta_tpu_torch.graph.assembly_graph import assemble_chain
+
+        ca = self.config.assembly
+        mg = self.marker_graph
+        with self.log.stage("createAssemblyGraphEdges"):
+            self.assembly_graph = AG.create_assembly_graph(mg)
+        with self.log.stage("assembleMarkerGraphVertices"):
+            self.vertex_repeats = AG.assemble_marker_graph_vertices(
+                self.reads, self.markers, mg,
+                caller=_vertex_caller_name(ca.consensus_caller),
+            )
+        with self.log.stage("assembleMarkerGraphEdges"):
+            # AssemblyGraph2 branch paths can include any alive edge.
+            self.edge_consensus = AG.assemble_marker_graph_edges(
+                self.reads, self.markers, mg,
+                needed=mg.alive(),
+                caller=get_consensus_caller(ca.consensus_caller),
+                length_threshold_markers=ca.marker_graph_edge_length_threshold_for_consensus,
+            )
+        with self.log.stage("assemble"):
+            AG.assemble_segments(
+                self.assembly_graph, mg, self.markers,
+                self.vertex_repeats, self.edge_consensus,
+            )
+
+        g = M2G.AssemblyGraph2(mg, self.markers, self.markers.k)
+        kmer_first = (
+            self.markers.kmer_ids[mg.vertex_markers[mg.vertex_offsets[:-1]]]
+            if mg.vertex_count
+            else np.zeros(0, np.uint32)
+        )
+        vertex_cov = mg.vertex_coverage()
+
+        kh = self.markers.k // 2
+
+        def assemble_fn(path):
+            # Exclude the first and last k/2 RLE bases so consecutive
+            # branch sequences abut exactly — the shared vertex's k
+            # bases split k/2 + k/2 between its two edges (reference:
+            # AssemblyGraph2::assemble, src/AssemblyGraph2.cpp:816-832).
+            _, rep, raw = assemble_chain(
+                mg, self.markers, self.vertex_repeats, self.edge_consensus,
+                path, kmer_first=kmer_first, vertex_cov=vertex_cov,
+            )
+            begin_skip = int(rep[:kh].sum())
+            end_skip = int(rep[rep.shape[0] - kh:].sum())
+            return raw[begin_skip : raw.shape[0] - end_skip]
+
+        g.set_assembler(assemble_fn)
+        p = M2G.Mode2Parameters(
+            prune_length=ca.prune_length,
+            strong_branch_threshold=ca.mode2_strong_branch_threshold,
+            epsilon=ca.mode2_epsilon,
+            bubble_removal_min_concordant=ca.mode2_bubble_removal_min_concordant_read_count,
+            bubble_removal_max_discordant=ca.mode2_bubble_removal_max_discordant_read_count,
+            bubble_removal_min_log_p=ca.mode2_bubble_removal_min_log_p,
+            bubble_removal_component_size_threshold=ca.mode2_bubble_removal_component_size_threshold,
+            phasing_min_concordant=ca.mode2_phasing_min_concordant_read_count,
+            phasing_max_discordant=ca.mode2_phasing_max_discordant_read_count,
+            phasing_min_log_p=ca.mode2_phasing_min_log_p,
+            superbubble_max_size=ca.mode2_superbubble_max_size,
+            superbubble_max_chunk_size=ca.mode2_superbubble_max_chunk_size,
+            superbubble_max_chunk_path_count=ca.mode2_superbubble_max_chunk_path_count,
+            superbubble_edge_length_threshold=ca.mode2_superbubble_edge_length_threshold,
+        )
+        with self.log.stage("assemblyGraph2"):
+            stats = M2G.run_assembly_graph2(g, p)
+            self.log.line(
+                f"AssemblyGraph2: {stats['phasedBubbleCount']} of "
+                f"{stats['diploidBubbleCount']} diploid bubbles phased "
+                f"into {stats['phasedComponentCount']} components; "
+                f"{stats['bubbleChainCount']} bubble chains; "
+                f"{stats['hetSnpTransitionCount']} transitions + "
+                f"{stats['hetSnpTransversionCount']} transversions."
+            )
+        self.mode2_graph = g
+        with self.log.stage("writeMode2Outputs"):
+            import os as _os
+
+            def pjoin(name):
+                return _os.path.join(self.run_dir, name)
+
+            if not ca.mode2_suppress_detailed_output:
+                M2G.write_detailed(
+                    g, pjoin("Assembly-Detailed"), True,
+                    write_gfa=not ca.mode2_suppress_gfa_output,
+                    write_fasta=not ca.mode2_suppress_fasta_output,
+                )
+                if not ca.mode2_suppress_gfa_output:
+                    M2G.write_detailed(
+                        g, pjoin("Assembly-Detailed-NoSequence"), False,
+                        write_fasta=False, write_csv=False,
+                    )
+            if not ca.mode2_suppress_haploid_output:
+                stats.update(M2G.write_haploid(
+                    g, pjoin("Assembly-Haploid"), True,
+                    write_gfa=not ca.mode2_suppress_gfa_output,
+                    write_fasta=not ca.mode2_suppress_fasta_output,
+                ))
+                if not ca.mode2_suppress_gfa_output:
+                    M2G.write_haploid(
+                        g, pjoin("Assembly-Haploid-NoSequence"), False,
+                        write_fasta=False, write_csv=False,
+                    )
+            if not ca.mode2_suppress_phased_output:
+                stats.update(M2G.write_phased(
+                    g, pjoin("Assembly-Phased"), True,
+                    write_gfa=not ca.mode2_suppress_gfa_output,
+                    write_fasta=not ca.mode2_suppress_fasta_output,
+                ))
+                if not ca.mode2_suppress_gfa_output:
+                    M2G.write_phased(
+                        g, pjoin("Assembly-Phased-NoSequence"), False,
+                        write_fasta=False, write_csv=False,
+                    )
+                M2G.write_phased_details(
+                    g, pjoin("Assembly-Phased-Details.csv")
+                )
+            M2G.write_phasing_regions(g, pjoin("PhasingRegions.csv"))
+            M2G.write_bubble_chains_csv(g, pjoin("BubbleChains.csv"))
+        self.store.save_stage("AssemblyGraph", self.assembly_graph.arrays())
+        return stats
 
     def _write_coverage_data(self, length_threshold: int) -> None:
         """Per-position coverage detail of long assembled segments
@@ -910,8 +1109,9 @@ def run_assembly(
     config: Optional[AssemblyConfig] = None,
     device="cuda",
 ) -> Dict:
-    """The full mode-0 pipeline (reference call sequence:
-    srcMain/main.cpp:516-830 + mode0Assembly :845-1045).
+    """The full pipeline (reference call sequence: srcMain/main.cpp:516-830,
+    then mode0Assembly :845-1045 with its iterative rounds :851-906, or
+    mode2Assembly :1049). Mode 3 raises ``NotImplementedError``.
 
     ``device``: where the alignment DP runs, "cuda" (the CUDA kernels;
     raises without a card) or "cpu" (their plain PyTorch version). The
@@ -925,11 +1125,8 @@ def run_assembly(
 
 
 def _run_assembly_stages(a: "Assembler", input_files: List[str], t0: float) -> Dict:
-    ca = a.config.assembly
-    if ca.mode in (2, 3):
-        raise _mode_not_ported(ca.mode)
-    if ca.iterative:
-        raise _not_ported("Assembly.iterative", 9, "pipeline/iterative.py")
+    if a.config.assembly.mode == 3:
+        raise _mode3_not_ported()
     a.add_reads(input_files)
     a.select_kmers()
     a.find_markers()
@@ -945,9 +1142,57 @@ def _run_assembly_stages(a: "Assembler", input_files: List[str], t0: float) -> D
     a.create_read_graph()
     a.create_marker_graph_vertices()
     a.create_marker_graph_edges()
-    a.release_alignments()
-    a.assemble_mode0()
-    summary = a.write_output()
+    if not (a.config.assembly.iterative and a.config.assembly.mode == 0):
+        # Iterative refinement re-scores stored alignments; everyone
+        # else is done with them once the marker graph exists.
+        a.release_alignments()
+    if a.config.assembly.iterative and a.config.assembly.mode == 0:
+        # Iterative refinement (reference: srcMain/main.cpp:851-906).
+        from shasta_tpu_torch.pipeline.iterative import (
+            refine_read_graph_with_pseudo_paths,
+        )
+
+        for it in range(a.config.assembly.iterative_iteration_count):
+            with a.log.stage(f"iterativeAssembly-{it}"):
+                kept, dropped = refine_read_graph_with_pseudo_paths(
+                    a,
+                    min_score=a.config.assembly.iterative_min_score,
+                    mismatch_square_factor=(
+                        a.config.assembly.iterative_mismatch_square_factor
+                    ),
+                )
+                a.log.line(
+                    f"Iteration {it}: kept {kept} alignments, "
+                    f"dropped {dropped} discordant."
+                )
+                # Bridge removal after the pseudo-path refinement
+                # (reference: srcMain/main.cpp:890-896).
+                total_bridges = 0
+                for _ in range(
+                    a.config.assembly.iterative_bridge_removal_iteration_count
+                ):
+                    a.read_graph, _, n_removed = RG.remove_read_graph_bridges(
+                        a.read_graph,
+                        a.alignments,
+                        a.reads.read_count,
+                        a.config.assembly.iterative_bridge_removal_max_distance,
+                    )
+                    total_bridges += n_removed
+                    if n_removed == 0:
+                        break
+                if total_bridges:
+                    a.log.line(f"Removed {total_bridges} read graph bridges.")
+                    a.create_marker_graph_vertices()
+                    a.create_marker_graph_edges()
+                if dropped == 0 and total_bridges == 0:
+                    break
+    if a.config.assembly.mode == 2:
+        mode2_stats = a.assemble_mode2()
+        summary = a.write_output()
+        summary.update(mode2_stats)
+    else:
+        a.assemble_mode0()
+        summary = a.write_output()
     summary["elapsedSeconds"] = time.monotonic() - t0
     # CPU time and average utilization (reference: srcMain/main.cpp:798-810).
     cpu = os.times()

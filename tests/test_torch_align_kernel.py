@@ -69,11 +69,15 @@ def test_plain_matches_pallas_interpret(interpret_mode, LA, W, force_chunked):
     assert (got[:, 0] > 0).sum() >= 3  # the batch has real alignments
 
 
-@pytest.mark.parametrize("seed", [0, 1])
-def test_plain_matches_jnp_oracle(seed):
+@pytest.mark.parametrize(
+    "seed,LA", [(0, 128), (1, 128), (2, 17), (3, 1)], ids=["0", "1", "LA17", "LA1"]
+)
+def test_plain_matches_jnp_oracle(seed, LA):
     """The matched pairs and best score equal the jnp oracle
-    (banded_forward + traceback), exactly."""
-    LA = LB = W = 128
+    (banded_forward + traceback), exactly; LA 17 and 1 end inside a
+    16-row word of the plain version's dirs."""
+    LB = LA
+    W = 128
     a, a_len, b, b_len, bm = make_batch(seed, LA=LA, LB=LB, W=W)
     fused = port(a, a_len, b, b_len, bm, LA=LA, LB=LB, W=W)
     # The oracle takes the wrapper's clamped inputs.

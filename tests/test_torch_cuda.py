@@ -182,3 +182,51 @@ def test_align_candidates_card_matches_cpu(card):
     for k, v in ra.items():
         assert ga[k].dtype == v.dtype, k
         assert np.array_equal(ga[k], v), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [128, 512, 2048])
+def test_grouped_run_matches_plain_on_card(card, W):
+    """Method 4's grouped route on the card against the CPU run (the
+    plain version) on the cases of one W class: per-pair matches and
+    metrics equal, and the kernels launched."""
+    from tests.torch_common import GROUPED, grouped_inputs
+
+    cases = [c for c in GROUPED if A._bucket(c[2], A._W_BUCKETS) == W]
+    a_rows, b_rows, bmins, widths = grouped_inputs(cases)
+    params = A.AlignParams()
+    before = dict(K.LAUNCHES)
+    got, met = A._grouped_run(a_rows, b_rows, bmins, widths, params, device=card)
+    want, want_met = A._grouped_run(a_rows, b_rows, bmins, widths, params, device="cpu")
+    assert K.LAUNCHES["banded_tb"] > before["banded_tb"]
+    assert np.array_equal(met, want_met) and (met[:, 0] > 0).all()
+    for (g0, g1), (w0, w1) in zip(got, want):
+        assert np.array_equal(g0, w0) and np.array_equal(g1, w1)
+
+
+@pytest.mark.cuda
+def test_mode2_golden_run_on_card(card, tmp_path):
+    """The mode-2 golden run (tests/test_reference_parity.py:
+    _golden_run_mode2's input and configuration) on the card: all 17
+    values of tests/golden/mode2_stage_hashes.json."""
+    import hashlib
+    import json
+    import os
+
+    from shasta_tpu_torch.pipeline.assemble import run_assembly
+    from tests.torch_common import mode2_golden_config, stage_hashes, write_mode2_reads
+
+    fasta = str(tmp_path / "reads.fasta")
+    write_mode2_reads(fasta)
+    run_dir = str(tmp_path / "run")
+    before = K.LAUNCHES["banded_tb"]
+    run_assembly([fasta], run_dir, mode2_golden_config(), device=card)
+    assert K.LAUNCHES["banded_tb"] > before
+    with open(os.path.join(os.path.dirname(__file__), "golden", "mode2_stage_hashes.json")) as f:
+        pinned = json.load(f)
+    got = stage_hashes(run_dir)
+    for key in pinned:
+        if key.startswith("file:"):
+            with open(os.path.join(run_dir, key[5:]), "rb") as f:
+                got[key] = hashlib.sha256(f.read()).hexdigest()
+    assert got == pinned

@@ -130,11 +130,11 @@ def test_reattached_to_reference_run_dir(golden):
     assert stage_hashes(run_dir)["Alignments"] == pinned["Alignments"]
 
 
-def test_unported_align_methods_raise(tmp_path):
-    """Methods 0, 1 and 4 are not in this slice: they raise, naming the
-    ROADMAP item that ports them."""
+def test_mode3_edges_raise(tmp_path):
+    """Mode 3's marker-graph edges are not in this slice: the stage
+    raises, naming the ROADMAP item that ports mode 3."""
     cfg = port_small_config()
-    cfg.align.align_method = 4
+    cfg.assembly.mode = 3
     asm = Assembler(str(tmp_path / "run"), cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        asm.compute_alignments()
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 11"):
+        asm.create_marker_graph_edges()

@@ -131,3 +131,102 @@ def mixed_batch(LA=128, W=128, B=13, seed=21):
         a_len[t], b_len[t] = la, lb
         bm[t] = -(W // 2) + int(rng.integers(-(W // 8), W // 8 + 1))
     return a, a_len, b, b_len, bm
+
+
+# tests/test_assembly_e2e.py:small_config as (section, key, value) overrides
+# of the configuration defaults.
+SMALL_CONF = [
+    ("Reads", "minReadLength", "500"), ("Kmers", "k", "8"),
+    ("Kmers", "probability", "0.1"), ("MinHash", "hashFraction", "0.05"),
+    ("MinHash", "minHashIterationCount", "6"), ("MinHash", "maxBucketSize", "60"),
+    ("Align", "minAlignedMarkerCount", "20"), ("Align", "maxSkip", "60"),
+    ("Align", "maxDrift", "60"), ("Align", "maxTrim", "60"),
+    ("ReadGraph", "maxAlignmentCount", "8"), ("MarkerGraph", "minCoverage", "3"),
+]
+
+
+def mode2_golden_config(cfg=None):
+    """tests/test_reference_parity.py:_golden_run_mode2's configuration
+    on the port's class: ``cfg`` (default: SMALL_CONF on the defaults)
+    with mode 2, minEdgeCoverage 3, per strand 0 and bubble-removal
+    component-size threshold 3."""
+    from shasta_tpu_torch.pipeline.config import AssemblyConfig
+
+    if cfg is None:
+        cfg = AssemblyConfig()
+        for section, key, value in SMALL_CONF:
+            cfg.set(section, key, value)
+    cfg.assembly.mode = 2
+    cfg.marker_graph.min_edge_coverage = 3
+    cfg.marker_graph.min_edge_coverage_per_strand = 0
+    cfg.assembly.mode2_bubble_removal_component_size_threshold = 3
+    return cfg
+
+
+def write_mode2_reads(path):
+    """_golden_run_mode2's reads, made with the port's utils/synth.py:
+    two 15 kb haplotypes with a SNP every 700 bases, 90 + 90 reads of
+    2.5 kb from both strands."""
+    from shasta_tpu_torch.utils import synth
+
+    rng = np.random.default_rng(4343)
+    hap_a = synth.random_genome(15000, seed=4444)
+    hap_b = hap_a.copy()
+    for p in np.arange(350, 15000, 700):
+        hap_b[p] = (hap_b[p] + 1 + rng.integers(0, 3)) % 4
+    reads = synth.sample_reads(hap_a, 90, 2500, seed=4445, both_strands=True)
+    reads += synth.sample_reads(hap_b, 90, 2500, seed=4446, both_strands=True)
+    synth.write_fasta(path, reads)
+
+
+def stage_hashes(run_dir):
+    """tests/test_reference_parity.py:_stage_hashes: sha256 over each
+    array's name, dtype, shape and bytes, per stage manifest."""
+    import hashlib
+
+    from shasta_tpu_torch.data.store import RunStore
+
+    store = RunStore(run_dir, create=False)
+    out = {}
+    for stage in sorted(store.stage_names()):
+        h = hashlib.sha256()
+        arrays = store.load_stage(stage)
+        for name in sorted(arrays):
+            a = np.ascontiguousarray(arrays[name])
+            h.update(name.encode())
+            h.update(str(a.dtype).encode())
+            h.update(str(a.shape).encode())
+            h.update(a.tobytes())
+        out[stage] = h.hexdigest()
+    return out
+
+
+# Method 4's grouped route: (a length, b length, band width, pairs). The
+# W classes 128, 512 and 2048, each at an LA where fwd_body gives the
+# anti-diagonal body and at one where it gives the row-scan body; widths
+# 300 and 1500 are centred inside their class.
+GROUPED = [
+    (100, 110, 97, 3), (120, 90, 300, 2), (400, 420, 300, 3),
+    (400, 380, 1500, 2), (900, 950, 1500, 2), (1000, 990, 2048, 1),
+]
+
+
+def grouped_inputs(cases=GROUPED, seed=404):
+    """Host rows for ``_grouped_run``: b a shifted copy of a with 10%
+    substitutions, each band on the pair's diagonal, off centre by up to
+    an eighth of its width."""
+    rng = np.random.default_rng(seed)
+    a_rows, b_rows, bmins, widths = [], [], [], []
+    for la, lb, w, n in cases:
+        for _ in range(n):
+            g = rng.integers(0, 300, la + lb).astype(np.int32)
+            shift = int(rng.integers(0, 30))
+            a = g[:la].copy()
+            b = g[shift : shift + lb].copy()
+            hit = rng.random(lb) < 0.1
+            b[hit] = rng.integers(0, 300, int(hit.sum()))
+            a_rows.append(a)
+            b_rows.append(b)
+            bmins.append(-shift - w // 2 + int(rng.integers(-(w // 8), w // 8 + 1)))
+            widths.append(w)
+    return a_rows, b_rows, np.asarray(bmins, np.int64), np.asarray(widths, np.int64)
