@@ -14,7 +14,9 @@ no result line):
    counts.
 2. Kernels against their plain PyTorch version on the card, at the
    main path's (LA, W) classes, a phase-1 launch of 16,384 small pairs,
-   odd widths, LA 1 and 17, the edge-case, long-gap and mixed-length
+   odd widths, LA 1 and 17, two bands past 16384 lanes (LA 512 x W 20480
+   and LA 256 x W 40000, whose rows the row-scan body keeps in device
+   memory), the edge-case, long-gap and mixed-length
    batches: exact int32 equality of each kernel's output and of the
    fused (B, 16 + LA) result. banded_fwd runs both its bodies where
    W <= DIAG_W_LIMIT (the anti-diagonal body and the row-scan body, timed
@@ -27,7 +29,11 @@ no result line):
    on the card with SHASTA_TORCH_WAVES=2 and =4, and on the CPU: all
    eight stage hashes equal the pinned values, the summary's counts
    equal tests/golden/mode0_metrics.json, and the FASTA and GFA files
-   are byte-equal across the four runs.
+   are byte-equal across the four runs. Then the palindrome pass at
+   deltaThreshold 8200 (a band of 16400 lanes, the W 32768 class) on the
+   golden input's first 32 reads and a palindromic read, on the card and
+   on the CPU: equal flags, the palindromic read flagged, every card
+   launch in that class on the row-scan body (the launch trace).
 4. Mode 0 end to end at a real size on the card (run_assembly): a 5 Mb
    random genome, ONT-like reads at 25x, Nanopore-May2022 verbatim. The
    launch counts are reset just before the run and read just after, and
@@ -39,6 +45,8 @@ no result line):
    SHASTA_TORCH_WAVES=2 (the waves kernel's main path): it gives the
    run's Alignments hash, and each class's forward time prints beside
    that of the run's own computeAlignments, with its pairs per launch.
+   Assembly.fasta is graded against the genome (utils/accuracy.py:
+   k-mer QV, completeness, misassemblies).
 5. Mode 2 golden: tests/test_reference_parity.py:_golden_run_mode2's
    input and configuration through the assemble command on the card, on
    the card with SHASTA_TORCH_WAVES=2 and on the CPU: all 17 values of
@@ -53,7 +61,9 @@ no result line):
    and the Phased and Haploid FASTA's length and N50 print, with the
    kernels' classes; 128 kept pairs re-aligned with the plain version on
    the card must agree. It fails if no bubble is phased or
-   Assembly-Phased.fasta is empty.
+   Assembly-Phased.fasta is empty. Assembly-Phased.fasta is graded
+   against the two haplotypes (phasing purity, het k-mer recall, switch
+   errors), Assembly-Haploid.fasta with both as the truth.
 7. Alignment method 4 and iterative assembly: (a) the mode-0 golden input
    under --Align.alignMethod 4 on the card and on the CPU (equal
    Alignments manifests, byte-equal FASTA/GFA); (b) method 4 on the first
@@ -63,6 +73,18 @@ no result line):
    on tests/test_iterative.py's input on the card and on the CPU (every
    stage manifest and the FASTA/GFA equal). Methods 0 and 1 run on the
    host only and are left to the CPU tests.
+8. Mode 3: (a) tests/test_torch_mode3.py's seed-55/56 input and its 2%
+   error input (the one whose Jaccard graph has paths) through the
+   assemble command on the card and on the CPU: every stage manifest,
+   the three mode-3 files, write_output's files and the eight mode3*
+   values equal; (b) a 1 Mb random genome (seed 700), ONT-like reads at 25x
+   (seed 701), Nanopore-May2022 verbatim plus --Assembly.mode 3, the
+   whole run_assembly on the card: launch counts reset just before and
+   read just after, 128 kept pairs re-aligned with the plain version on
+   the card, Mode3-Paths.fasta graded against the genome; it fails if no
+   Jaccard path is assembled.
+
+The grades record accuracy and gate nothing: no floor has been measured.
 
 Each phase's seconds print. The line before the last is
 {"kernels": [...]}, each kernel's launches summed over the paths that
@@ -118,12 +140,15 @@ SCORES = dict(match=6, mismatch=-1, gap=-1)
 # 16-lanes-per-thread instantiation, which a max_band above 2047
 # reaches), widths that are not a multiple of 32 (the anti-diagonal
 # body's phantom lanes at K = 2, 16, 16; the row-scan body just past
-# 2048), and LA 1 and 17.
+# 2048), LA 1 and 17, and two bands past ROWS_SMEM_MAX_W (16384), where
+# the row-scan body keeps its rows in device memory and runs each row in
+# tiles of 16384 lanes (wide_batch: paths across a tile's edge).
 SHAPES = [
     (128, 512, 2048), (2048, 128, 512), (4096, 512, 256), (1024, 2048, 128),
     (4096, 128, 256), (8192, 512, 64), (32768, 128, 64), (512, 8192, 8),
     (1024, 33, 256), (1024, 288, 256), (2048, 511, 128), (512, 2049, 32),
-    (1, 128, 64), (17, 512, 64), (256, 128, 16384),
+    (1, 128, 64), (17, 512, 64), (256, 128, 16384), (512, 20480, 4),
+    (256, 40000, 4),
 ]
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 INT32_LANES_PER_SM = 64  # Hopper SM: 4 partitions x 16 INT32 units
@@ -366,6 +391,37 @@ def mixed_batch(LA, W, B=13, seed=21):
     return a, a_len, b, b_len, bm
 
 
+def wide_batch(LA, W, B, seed=31):
+    """tests/torch_common.py:wide_batch: a band past 16384 lanes, b of
+    W + LA so that every lane lies inside the matrix on some row, each
+    path crossing a multiple of 16384 lanes by a run of LEFT moves; odd
+    pairs end on b's last column."""
+    LB = W + LA
+    rng = np.random.default_rng(seed)
+    a = np.full((B, LA), -1, np.int32)
+    b = np.full((B, LB), -2, np.int32)
+    a_len = np.full(B, LA, np.int32)
+    b_len = np.zeros(B, np.int32)
+    bm = np.zeros(B, np.int32)
+    n_edges = max(1, (W - 1) // 16384)
+    for t in range(B):
+        edge = 16384 * (1 + (t // 2) % n_edges)
+        L = max(2, min(LA // 2, 2 * (W - edge) - 8))
+        c = edge - L // 2
+        cut = LA // 2
+        x = rng.integers(0, 50, LA).astype(np.int32)
+        bg = rng.integers(0, 50, LB).astype(np.int32)
+        bg[c : c + cut] = x[:cut]
+        bg[c + cut + L : c + L + LA] = x[cut:]
+        sub = rng.random(LA) < 0.1
+        x[sub] = rng.integers(0, 50, int(sub.sum()))
+        a[t] = x
+        b_len[t] = LB if t % 2 == 0 else c + L + LA - 3
+        b[t, : b_len[t]] = bg[: b_len[t]]
+        bm[t] = -(t % 3)
+    return a, a_len, b, b_len, bm
+
+
 def cuda_ms(fn, reps):
     fn()
     torch.cuda.synchronize()
@@ -417,9 +473,10 @@ def check_kernels(host, LA, W, plain=None, pmj=None):
     them. Returns (device inputs, plain forward, plain fused, max error)."""
     from shasta_tpu_torch.ops import align_kernel as K
 
-    kw = dict(LA=LA, LB=LA, W=W, **SCORES)
+    LB = host[2].shape[1]
+    kw = dict(LA=LA, LB=LB, W=W, **SCORES)
     dev = [torch.from_numpy(x).cuda() for x in host]
-    a, a_len, b, b_len, bm = K.prepare_inputs(*dev, LA=LA, LB=LA, W=W)
+    a, a_len, b, b_len, bm = K.prepare_inputs(*dev, LA=LA, LB=LB, W=W)
     if plain is None:
         plain = K.banded_fwd_plain(a, a_len, b, b_len, bm, **kw)
     pdirs, pbest, pbi, pbd = plain
@@ -471,12 +528,16 @@ def phase_kernels(sm_clock_mhz):
     )
     results = {}
     for LA, W, B in SHAPES:
-        kw = dict(LA=LA, LB=LA, W=W, **SCORES)
-        host = make_batch(LA * 7 + W, B, LA, W)
+        if W > K.ROWS_SMEM_MAX_W:
+            host = wide_batch(LA, W, B)
+        else:
+            host = make_batch(LA * 7 + W, B, LA, W)
+        LB = host[2].shape[1]
+        kw = dict(LA=LA, LB=LB, W=W, **SCORES)
         # The plain version once, timed (forward, then traceback); the
         # kernels are held to these outputs.
         dev = [torch.from_numpy(x).cuda() for x in host]
-        a, a_len, b, b_len, bm = K.prepare_inputs(*dev, LA=LA, LB=LA, W=W)
+        a, a_len, b, b_len, bm = K.prepare_inputs(*dev, LA=LA, LB=LB, W=W)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         plain = K.banded_fwd_plain(a, a_len, b, b_len, bm, **kw)
@@ -516,7 +577,7 @@ def phase_kernels(sm_clock_mhz):
 
         rows = int(a_len.clamp(max=LA).sum())
         cells = rows * W
-        fwd_bytes = 4 * B * 2 * LA + 4 * 5 * B + sum(
+        fwd_bytes = 4 * B * (LA + LB) + 4 * 5 * B + sum(
             -(-int(r) // 16) * W * 4 for r in a_len.tolist()
         )
         fwd_bound, fwd_by, fwd_ops_ms, fwd_bytes_ms = bound_ms(
@@ -528,7 +589,7 @@ def phase_kernels(sm_clock_mhz):
         )
         gcells = B * LA * W / ((fwd_ms + tb_ms) * 1e-3) / 1e9
         results[(LA, W)] = {
-            "LA": LA, "W": W, "B": B, "matched": n_matched, "body": body,
+            "LA": LA, "LB": LB, "W": W, "B": B, "matched": n_matched, "body": body,
             "fwd_ms": fwd_ms, "rows_ms": rows_ms, "diag_ms": diag_ms,
             "fwd_turns_ms": turns, "tb_ms": tb_ms,
             "fwd_plain_ms": (t1 - t0) * 1e3, "tb_plain_ms": (t2 - t1) * 1e3,
@@ -540,7 +601,9 @@ def phase_kernels(sm_clock_mhz):
             "waves_ms": waves_ms, "waves_max_abs_err": max_err,
         }
         log(
-            f"kernel LA={LA} W={W} B={B}: equal (matches {n_matched}); "
+            f"kernel LA={LA} W={W} B={B}"
+            + (f" LB={LB}" if LB != LA else "")
+            + f": equal (matches {n_matched}); "
             f"fwd ({body}) {fwd_ms:.3f} ms; anti-diagonal body "
             + (f"{diag_ms:.3f} ms ({fwd_bound / diag_ms:.1%} of bound)" if both else "-")
             + f", row-scan body {rows_ms:.3f} ms ({fwd_bound / rows_ms:.1%}) "
@@ -728,6 +791,112 @@ def phase_golden(work):
     )
 
 
+# The palindrome pass's deltaThreshold past 8192: a self-alignment band
+# of 2 x 8200 = 16400 lanes, which the align engine runs in its W class
+# 32768, past ROWS_SMEM_MAX_W.
+PALINDROME_DELTA = 8200
+
+
+def small_config():
+    """SMALL_OVERRIDES on the configuration defaults."""
+    from shasta_tpu_torch.pipeline.config import AssemblyConfig
+
+    cfg = AssemblyConfig()
+    for flag, value in zip(SMALL_OVERRIDES[::2], SMALL_OVERRIDES[1::2]):
+        cfg.set(*flag[2:].split(".", 1), value)
+    return cfg
+
+
+def palindrome_reads(n=32):
+    """tests/torch_common.py:palindrome_reads at n = 32: the golden
+    input's first 32 reads and one palindromic read, 1.5 kb of the
+    golden genome followed by its reverse complement."""
+    from shasta_tpu_torch.data import bases as B
+    from shasta_tpu_torch.utils import synth
+
+    genome = synth.random_genome(25000, seed=4242)
+    reads = synth.sample_reads(genome, 130, 3000, seed=4243, both_strands=True)[:n]
+    half = genome[1000:2500]
+    return reads + [np.concatenate([half, B.reverse_complement(half)])]
+
+
+def phase_palindrome_wide(work, sm_clock_mhz):
+    """Phase 3 (b): the palindrome pass at deltaThreshold 8200 on the
+    first 32 golden reads and a palindromic read, on the card and on the
+    CPU (the plain version takes about half a second per read at this
+    width there): equal flags, the palindromic read flagged, and the
+    card's launches, from the launch trace, all in the W 32768 class,
+    banded_fwd on the row-scan body."""
+    from shasta_tpu_torch.ops import align as AL
+    from shasta_tpu_torch.ops import align_kernel as K
+    from shasta_tpu_torch.ops.palindrome import flag_palindromic_reads
+    from shasta_tpu_torch.pipeline.assemble import Assembler
+    from shasta_tpu_torch.utils import synth
+
+    fasta = os.path.join(work, "palindrome.fasta")
+    synth.write_fasta(fasta, palindrome_reads())
+    asm = Assembler(os.path.join(work, "palindrome"), small_config(), device="cpu")
+    asm.add_reads([fasta])
+    asm.select_kmers()
+    asm.find_markers()
+    W = int(AL._bucket(2 * PALINDROME_DELTA, AL._W_BUCKETS))
+    flags, out = {}, {}
+    for device in ("cuda", "cpu"):
+        reset_launches()
+        K.TRACE = [] if device == "cuda" else None
+        t0 = time.perf_counter()
+        flags[device] = flag_palindromic_reads(
+            asm.markers, delta_threshold=PALINDROME_DELTA, device=device
+        )
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = dict(K.LAUNCHES)
+        trace, K.TRACE = K.TRACE, None
+        out[device] = {"seconds": secs, "launches": launches}
+        log(
+            f"palindrome pass deltaThreshold {PALINDROME_DELTA} (band {2 * PALINDROME_DELTA}, "
+            f"W class {W}) --device {device}: {secs:.2f}s, {int(flags[device].sum())} of "
+            f"{flags[device].shape[0]} reads flagged, launches {launches}"
+        )
+        if device == "cpu":
+            check_card_launches("palindrome cpu", "cpu", None, launches)
+            continue
+        shapes = kernel_classes(trace, sm_clock_mhz, "palindrome")
+        out[device]["shapes"] = shapes
+        wrong = [
+            c for c in shapes
+            if c["W"] != W or (c["kernel"] == "banded_fwd" and c["body"] != "rows")
+        ]
+        if launches["banded_fwd"] == 0 or launches["banded_tb"] == 0 or wrong:
+            raise AssertionError(
+                f"palindrome pass: no launch, or a launch outside the W {W} class on the "
+                f"row-scan body: {launches}, {wrong}"
+            )
+    if not np.array_equal(flags["cuda"], flags["cpu"]) or not flags["cpu"][-1]:
+        raise AssertionError(
+            f"palindrome pass: card flags {flags['cuda'].tolist()} != CPU flags "
+            f"{flags['cpu'].tolist()}, or the palindromic read is not flagged"
+        )
+    log("palindrome pass at a band past 16384 lanes: flags equal on the card and the CPU")
+    return out
+
+
+def grade(label, path, truth):
+    """utils/accuracy.assembly_metrics of a FASTA file against the truth
+    (one genome or a list of haplotypes): k-mer QV, completeness and
+    misassemblies."""
+    from shasta_tpu_torch.utils import accuracy as AC
+
+    t0 = time.perf_counter()
+    m = AC.assembly_metrics(AC.parse_fasta_contigs(path), truth, k=21)
+    log(
+        f"{label} grade of {os.path.basename(path)}: qv {m['qv']}, completeness "
+        f"{m['completeness']}, misassemblies {m['misassemblies']} ({m}); "
+        f"{time.perf_counter() - t0:.1f}s"
+    )
+    return m
+
+
 def kernel_classes(trace, sm_clock_mhz, label, echo=True):
     """Per (kernel, LA, W) launches, pairs, device ms, processed work and
     bound of one traced run; prints one line per class with ``echo``."""
@@ -897,6 +1066,8 @@ def phase_real_size(work, sm_clock_mhz):
         raise AssertionError("alignment ordinals not strictly increasing")
 
     spot_check("real size", markers, kmer_table, aligned, cfg)
+    graded = grade("real size", os.path.join(run_dir, "Assembly.fasta"), genome)
+    del genome
 
     # computeAlignments again on the run's Markers and AlignmentCandidates
     # with the waves kernel: counts to 0 just before, read just after. Its
@@ -964,7 +1135,7 @@ def phase_real_size(work, sm_clock_mhz):
         "summary": {k: v for k, v in summary.items() if not isinstance(v, (dict, list))},
         "shapes": shapes, "fwd_ms": fwd_ms, "tb_ms": tb_ms, "nominal_cells": nominal,
         "processed_cells": real_cells,
-        "reruns": reruns, "by_class": by_class,
+        "reruns": reruns, "by_class": by_class, "grade": graded,
     }
 
 # ---------------------------------------------------------------------------
@@ -1103,7 +1274,8 @@ def fasta_stats(path):
 def diploid_reads(genome_len, coverage, seeds=(600, 601, 602, 603)):
     """Haplotype A a random genome; haplotype B A with one substitution
     every 1,000 bases at a seeded jitter of up to 250; ONT-like reads
-    (phase 4's length model) at ``coverage`` on each haplotype."""
+    (phase 4's length model) at ``coverage`` on each haplotype. Returns
+    (reads, SNP count, (haplotype A, haplotype B))."""
     from shasta_tpu_torch.utils import synth
 
     hap_a = synth.random_genome(genome_len, seed=seeds[0])
@@ -1115,7 +1287,7 @@ def diploid_reads(genome_len, coverage, seeds=(600, 601, 602, 603)):
     kw = dict(median_length=25000, sigma=0.55, min_length=3000)
     reads = synth.sample_reads_ont(hap_a, coverage, seed=seeds[2], **kw)
     reads += synth.sample_reads_ont(hap_b, coverage, seed=seeds[3], **kw)
-    return reads, int(pos.shape[0])
+    return reads, int(pos.shape[0]), (hap_a, hap_b)
 
 
 def log_counts(path):
@@ -1146,7 +1318,7 @@ def phase_mode2_real_size(work, sm_clock_mhz, genome_len=5_000_000, coverage=15.
     from shasta_tpu_torch.utils import synth
 
     t0 = time.perf_counter()
-    reads, n_het = diploid_reads(genome_len, coverage)
+    reads, n_het, haps = diploid_reads(genome_len, coverage)
     fasta = os.path.join(work, "diploid.fasta")
     synth.write_fasta(fasta, reads)
     log(
@@ -1213,6 +1385,7 @@ def phase_mode2_real_size(work, sm_clock_mhz, genome_len=5_000_000, coverage=15.
         "mode 2 real size", MarkerStore.from_arrays(store.load_stage("Markers")),
         KmerTable.from_arrays(store.load_stage("Kmers")), aligned, cfg,
     )
+    graded = grade_diploid(run_dir, *haps)
     return {
         "launches": launches, "times": times, "wall_s": wall, "peak_bytes": peak,
         "summary": {k: v for k, v in summary.items() if not isinstance(v, (dict, list))},
@@ -1220,7 +1393,30 @@ def phase_mode2_real_size(work, sm_clock_mhz, genome_len=5_000_000, coverage=15.
         "secondary_split": [split, new],
         "fasta": {k: dict(zip(("sequences", "total", "n50"), v)) for k, v in fa.items()},
         "shapes": shapes, "fwd_ms": fwd_ms, "tb_ms": tb_ms, "coverage": coverage,
+        "grade": graded,
     }
+
+
+def grade_diploid(run_dir, hap_a, hap_b):
+    """Assembly-Phased.fasta against the two haplotypes
+    (diploid_phasing_metrics and phasing_switch_errors) and
+    Assembly-Haploid.fasta with both as the truth (assembly_metrics)."""
+    from shasta_tpu_torch.utils import accuracy as AC
+
+    t0 = time.perf_counter()
+    phased = AC.parse_fasta_contigs(os.path.join(run_dir, "Assembly-Phased.fasta"))
+    out = {
+        "phasing": AC.diploid_phasing_metrics(phased, hap_a, hap_b, k=21),
+        "switches": AC.phasing_switch_errors(phased, hap_a, hap_b),
+    }
+    log(
+        f"mode 2 real size grade of Assembly-Phased.fasta: phasing {out['phasing']}; "
+        f"switch errors {out['switches']}; {time.perf_counter() - t0:.1f}s"
+    )
+    out["haploid"] = grade(
+        "mode 2 real size", os.path.join(run_dir, "Assembly-Haploid.fasta"), [hap_a, hap_b]
+    )
+    return out
 
 
 def phase_method4_golden(work):
@@ -1364,6 +1560,174 @@ def phase_iterative(work):
     log("iterative: every stage manifest and the FASTA/GFA equal on the card and the CPU")
 
 
+# Mode 3's test inputs (tests/test_torch_mode3.py): (genome seed, reads,
+# read length, read seed, error rate, minHashIterationCount or None for
+# small_config's 6). "pathgraph" is test_pathgraph_on_pipeline_mode3's;
+# "noisy" (tests/test_mode3.py's 2% error input) is the one whose
+# Jaccard graph has edges and paths.
+MODE3_INPUTS = {
+    "pathgraph": (55, 120, 2500, 56, 0.0, None),
+    "noisy": (91, 160, 3000, 92, 0.02, 20),
+}
+MODE3_VALUES = [
+    "mode3SegmentCount", "mode3LinkCount", "mode3PathCount",
+    "mode3JaccardEdgeCount", "mode3JaccardPathCount",
+    "mode3JaccardPathTotalLength", "mode3JaccardPathN50", "mode3ClusterCount",
+]
+MODE3_FILES = ["Mode3-Assembly.gfa", "JaccardGraphEdges.csv", "Mode3-Paths.fasta"]
+# write_output's files that hold no timing and do not name the package.
+WRITE_OUTPUT_FILES = OUTPUTS + [
+    "shasta.conf", "stdout.log", "ReadLengthHistogram.csv",
+    "LowHashBucketHistogram.csv", "ReadLowHashStatistics.csv",
+]
+
+
+def overrides_with(base, flag, value):
+    """``base`` --Section.key overrides with ``flag`` set to ``value``."""
+    out = list(base)
+    if flag in out:
+        out[out.index(flag) + 1] = value
+    else:
+        out += [flag, value]
+    return out
+
+
+def phase_mode3_test_inputs(work):
+    """Phase 8 (a): mode 3 through the assemble command on the test
+    inputs, on the card and on the CPU: every stage manifest (MarkerGraph
+    and Mode3 included), the three mode-3 files, write_output's files and
+    the eight mode3* values equal."""
+    from shasta_tpu_torch.utils import synth
+
+    _, conf = golden_inputs(work)
+    out = {}
+    for name, (gseed, n, length, rseed, err, iters) in MODE3_INPUTS.items():
+        fasta = os.path.join(work, f"mode3-{name}.fasta")
+        genome = synth.random_genome(20000, seed=gseed)
+        synth.write_fasta(
+            fasta, synth.sample_reads(genome, n, length, seed=rseed, error_rate=err,
+                                      both_strands=True),
+        )
+        argv = overrides_with(SMALL_OVERRIDES, "--Assembly.mode", "3")
+        if iters is not None:
+            argv = overrides_with(argv, "--MinHash.minHashIterationCount", str(iters))
+        runs = {}
+        for device in ("cuda", "cpu"):
+            label = f"mode3-{name}-{device}"
+            run_dir, summary, launches, secs = run_cli(
+                label, work, ["--config", conf, "--input", fasta, "--device", device, *argv]
+            )
+            check_card_launches(label, device, None, launches)
+            hashes = stage_hashes(run_dir)
+            if not {"MarkerGraph", "Mode3"} <= set(hashes):
+                raise AssertionError(f"{label}: stages {sorted(hashes)}")
+            hashes.update(file_hashes(run_dir, MODE3_FILES + WRITE_OUTPUT_FILES))
+            values = {k: summary[k] for k in MODE3_VALUES}
+            runs[device] = (hashes, values)
+            out[label] = {"seconds": secs, "launches": launches, **values}
+            log(f"mode 3 {name} assemble --device {device}: {secs:.2f}s, {values}, "
+                f"launches {launches}")
+        if runs["cuda"] != runs["cpu"]:
+            bad = sorted(k for k in runs["cpu"][0] if runs["cuda"][0].get(k) != runs["cpu"][0][k])
+            raise AssertionError(f"mode 3 {name}: card != CPU: {bad}, {runs}")
+        if name == "noisy" and runs["cpu"][1]["mode3JaccardPathCount"] == 0:
+            raise AssertionError("mode 3 noisy: no Jaccard path")
+    log(
+        "mode 3 test inputs: every stage manifest, the three mode-3 files, "
+        "write_output's files and the eight mode3* values equal on the card and the CPU"
+    )
+    return out
+
+
+def phase_mode3_real_size(work, sm_clock_mhz, genome_len=1_000_000):
+    """Phase 8 (b): mode 3 at a real size on the card: a 1 Mb random
+    genome (seed 700), ONT-like reads at 25x (seed 701, phase 4's length
+    model), Nanopore-May2022 verbatim plus --Assembly.mode 3. 1 Mb and
+    not 2: the mode-3 host stages grow faster than the genome, about 200
+    s at 2 Mb by a CPU rehearsal (PERF.md), past this phase's share of
+    the script's time. Launch counts reset
+    just before the run and read just after; 128 kept pairs re-aligned
+    with the plain version on the card; Mode3-Paths.fasta graded against
+    the genome. It fails if no Jaccard path is assembled."""
+    from shasta_tpu_torch.data.kmers import KmerTable
+    from shasta_tpu_torch.data.markers import MarkerStore
+    from shasta_tpu_torch.data.store import RunStore
+    from shasta_tpu_torch.ops import align as AL
+    from shasta_tpu_torch.ops import align_kernel as K
+    from shasta_tpu_torch.pipeline.assemble import run_assembly
+    from shasta_tpu_torch.pipeline.config import AssemblyConfig
+    from shasta_tpu_torch.pipeline.configurations import get_configuration
+    from shasta_tpu_torch.utils import synth
+
+    t0 = time.perf_counter()
+    genome = synth.random_genome(genome_len, seed=700)
+    reads = synth.sample_reads_ont(
+        genome, 25.0, seed=701, median_length=25000, sigma=0.55, min_length=3000
+    )
+    fasta = os.path.join(work, "mode3.fasta")
+    synth.write_fasta(fasta, reads)
+    log(
+        f"mode 3 real size: a {genome_len / 1e6:.1f} Mb genome, {len(reads)} reads, "
+        f"{sum(r.shape[0] for r in reads) / 1e6:.1f} Mb, generated in "
+        f"{time.perf_counter() - t0:.1f}s"
+    )
+    del reads
+    cfg = AssemblyConfig.from_conf_text(get_configuration("Nanopore-May2022"))
+    cfg.assembly.mode = 3
+    run_dir = os.path.join(work, "mode3")
+
+    reset_launches()
+    K.TRACE = []
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with waves_env(None), contextlib.redirect_stdout(io.StringIO()):
+        summary = run_assembly([fasta], run_dir, cfg, device="cuda")
+    wall = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    trace, K.TRACE = K.TRACE, None
+    peak = torch.cuda.max_memory_allocated()
+    times = summary["stageSeconds"]
+    values = {k: summary[k] for k in MODE3_VALUES}
+    log(f"mode 3 real size run_assembly: {wall:.2f}s wall; stage seconds: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in times.items()))
+    log(
+        f"mode 3 real size: reads {summary['readCount']}, candidates "
+        f"{summary['alignmentCandidateCount']}, alignments {summary['alignmentCount']}; "
+        f"markerGraphMinCoverageUsed {summary['markerGraphMinCoverageUsed']}, marker graph "
+        f"vertices {summary['markerGraphVertexCount']}, edges "
+        f"{summary['markerGraphEdgeCount']}; {values}"
+    )
+    shapes = kernel_classes(trace, sm_clock_mhz, "mode 3")
+    fwd_ms = sum(c["device_ms"] for c in shapes if c["kernel"] != "banded_tb")
+    tb_ms = sum(c["device_ms"] for c in shapes if c["kernel"] == "banded_tb")
+    dp_wall = times["flagPalindromicReads"] + times["computeAlignments"]
+    log(
+        f"mode 3 real size launches: {launches}; peak device memory "
+        f"{peak / 2**30:.2f} GiB; kernel device time fwd {fwd_ms:.1f} ms, tb "
+        f"{tb_ms:.1f} ms, busy {(fwd_ms + tb_ms) / 1e3 / dp_wall:.1%} of the two DP "
+        f"stages' {dp_wall:.2f}s"
+    )
+    if launches["banded_fwd"] == 0 or launches["banded_tb"] == 0:
+        raise AssertionError(f"mode 3 real size: a kernel never launched: {launches}")
+    if values["mode3JaccardPathCount"] < 1:
+        raise AssertionError(f"mode 3 real size: no Jaccard path assembled: {values}")
+    store = RunStore(run_dir, create=False)
+    aligned = AL.AlignmentStore.from_arrays(store.load_stage("Alignments"))
+    spot_check(
+        "mode 3 real size", MarkerStore.from_arrays(store.load_stage("Markers")),
+        KmerTable.from_arrays(store.load_stage("Kmers")), aligned, cfg,
+    )
+    paths = os.path.join(run_dir, "Mode3-Paths.fasta")
+    return {
+        "genome_len": genome_len, "launches": launches, "times": times, "wall_s": wall,
+        "peak_bytes": peak,
+        "summary": {k: v for k, v in summary.items() if not isinstance(v, (dict, list))},
+        "paths_fasta": dict(zip(("sequences", "total", "n50"), fasta_stats(paths))),
+        "grade": grade("mode 3 real size", paths, genome),
+        "shapes": shapes, "fwd_ms": fwd_ms, "tb_ms": tb_ms,
+    }
+
+
 # The downsampling hash table of every k-mer, by k: a function of k alone,
 # built once by KmerTable.downsampling_hash_table for the spot checks of
 # phases 4 and 6.
@@ -1455,12 +1819,15 @@ def main() -> int:
     blocks = run(2, phase_blocks_per_sm)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
         run(3, phase_golden, work)
+        out["palindrome_wide"] = run(3, phase_palindrome_wide, work, sm_clock)
         real = run(4, phase_real_size, work, sm_clock)
         out["mode2_golden"] = run(5, phase_mode2_golden, work)
         out["mode2_real_size"] = run(6, phase_mode2_real_size, work, sm_clock)
         run(7, phase_method4_golden, work)
         out["method4_real_size"] = run(7, phase_method4_real_size, real["dir"], sm_clock)
         run(7, phase_iterative, work)
+        out["mode3_test_inputs"] = run(8, phase_mode3_test_inputs, work)
+        out["mode3_real_size"] = run(8, phase_mode3_real_size, work, sm_clock)
     log("phase seconds: " + ", ".join(f"{n} {t:.1f}" for n, t in sorted(seconds.items())))
     card = smi("name,power.limit")
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -1488,7 +1855,8 @@ def kernel_line(kernels, real, out):
     the paths that ran it, each counted from 0 just before its run: the
     mode-0 real-size run (phase 4), its computeAlignments rerun under
     waves 2, the mode-2 real-size run (phase 6), the mode-2 golden run
-    under waves 2 (phase 5) and method 4 at a real size (phase 7).
+    under waves 2 (phase 5), method 4 at a real size (phase 7) and the
+    mode-3 real-size run (phase 8).
     Times are phase 2's at the listed shape whose class took the most
     banded_fwd time on the mode-0 run."""
     paths = {
@@ -1497,6 +1865,7 @@ def kernel_line(kernels, real, out):
         "mode2": out["mode2_real_size"]["launches"],
         "mode2-waves2": out["mode2_golden"]["mode2-golden-cuda-waves2"]["launches"],
         "method4": out["method4_real_size"]["launches"],
+        "mode3": out["mode3_real_size"]["launches"],
     }
 
     def launched(name):

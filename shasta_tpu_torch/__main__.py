@@ -104,8 +104,8 @@ def main(argv=None):
 
     if args.command == "explore":
         raise NotImplementedError(
-            "The explore command is not ported yet (ROADMAP.md, modules to "
-            "port, item 14: http/explore.py)"
+            "The explore command is not ported yet (ROADMAP.md, queue 1, "
+            "item 4: http/explore.py)"
         )
 
     if args.command == "saveBinaryData":

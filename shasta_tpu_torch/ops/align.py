@@ -175,7 +175,7 @@ def _bucket(n: int, buckets) -> int:
     # phase-1 bands) extend in power-of-2 steps instead of silently
     # clamping — clamping would crash _pad_rows (length) or clip the
     # band so discovery misses the true diagonal (width). The CUDA
-    # kernels take any LA and W up to 16384 without a new build.
+    # kernels take any LA and W without a new build.
     b = buckets[-1]
     while b < n:
         b *= 2

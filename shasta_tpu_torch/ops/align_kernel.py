@@ -23,9 +23,10 @@ kernels (``csrc/*.cu``) replace its four Pallas kernels:
 
 The TPU splits monolithic and chunked regimes because of its VMEM
 budget; the card has no such budget, so one kernel pair serves every
-LA and every W up to 16384 (a wider band raises). The forward kernel
-writes the 2-bit direction codes (16 rows to an int32 word) to device
-memory; the traceback kernel walks them back.
+LA and every W (the row-scan body keeps its rows in shared memory up to
+``ROWS_SMEM_MAX_W`` lanes and in device memory past it). The forward
+kernel writes the 2-bit direction codes (16 rows to an int32 word) to
+device memory; the traceback kernel walks them back.
 
 Contract (the JAX wrapper's, align_pallas.py:948-1017):
 
@@ -92,8 +93,11 @@ FWD_INT_OPS_PER_CELL = 13
 
 # Byte budget of the packed dirs of one forward launch.
 _DIRS_BYTES = 1 << 30
-# The widest band the forward kernel takes (the row-scan body's limit).
-MAX_W = 16384
+# The widest band whose two rows the row-scan body keeps in shared
+# memory. Past it they lie in a per-pair scratch in device memory that
+# the wrapper allocates (2 (W + 1) int32 per pair), and each row runs in
+# tiles of 16384 lanes (csrc/banded_align.cu, banded_fwd_wide_kernel).
+ROWS_SMEM_MAX_W = 16384
 # The widest band the anti-diagonal body takes (1024 threads x 4 lanes).
 DIAG_W_LIMIT = 4096
 # The anti-diagonal body pays a ramp of W / 2 pair steps on every pair,
@@ -211,10 +215,11 @@ def build_kernels(force: bool = False) -> float:
         if _lib is None:
             lib = ctypes.CDLL(_SO)
             vp, ci = ctypes.c_void_p, ctypes.c_int
-            fwd_args = [vp] * 5 + [ci] * 7 + [vp] * 5
-            for name in ("banded_fwd_diag_launch", "banded_fwd_rows_launch"):
-                getattr(lib, name).argtypes = fwd_args
-                getattr(lib, name).restype = ci
+            lib.banded_fwd_diag_launch.argtypes = [vp] * 5 + [ci] * 7 + [vp] * 5
+            lib.banded_fwd_diag_launch.restype = ci
+            # banded_fwd_rows_launch takes its row scratch after the scores.
+            lib.banded_fwd_rows_launch.argtypes = [vp] * 5 + [ci] * 7 + [vp] * 6
+            lib.banded_fwd_rows_launch.restype = ci
             lib.banded_tb_launch.argtypes = [vp] * 4 + [ci] * 3 + [vp] * 2
             lib.banded_tb_launch.restype = ci
             # banded_fwd_waves_launch takes waves after the scores.
@@ -287,17 +292,28 @@ def _banded_fwd_body(
     body, a, a_len, b, b_len, band_min, *, LA, LB, W, match, mismatch, gap
 ):
     """banded_fwd's launch of one body, "diag" (W <= DIAG_W_LIMIT) or
-    "rows" (W <= MAX_W), on CUDA tensors; both give the same outputs.
+    "rows" (any W), on CUDA tensors; both give the same outputs.
     chip_smoke.py and the card tests run both bodies through it."""
     _check_cuda(a, a_len, b, b_len, band_min)
-    limit = DIAG_W_LIMIT if body == "diag" else MAX_W
-    if body not in ("diag", "rows") or W > limit:
+    if body not in ("diag", "rows") or (body == "diag" and W > DIAG_W_LIMIT):
         raise ValueError(
-            f"banded_fwd's {body!r} body takes W <= {limit}; got W={W}"
+            f"banded_fwd's {body!r} body: 'diag' takes W <= {DIAG_W_LIMIT}, "
+            f"'rows' any W; got W={W}"
         )
+    extra = ()
+    if body == "rows":
+        # Past ROWS_SMEM_MAX_W the kernel's rows live in this scratch; the
+        # caching allocator does not hand it out again before the
+        # launch's stream has passed it.
+        rowbuf = None
+        if W > ROWS_SMEM_MAX_W:
+            rowbuf = torch.empty(
+                a.shape[0] * 2 * (W + 1), dtype=torch.int32, device=a.device
+            )
+        extra = (None if rowbuf is None else rowbuf.data_ptr(),)
     return _launch_fwd(
         "banded_fwd", body, a, a_len, b, b_len, band_min, LA, LB, W,
-        match, mismatch, gap,
+        match, mismatch, gap, *extra,
     )
 
 

@@ -1,9 +1,9 @@
-"""The end-to-end assembly pipeline, modes 0 and 2.
+"""The end-to-end assembly pipeline, modes 0, 2 and 3.
 
 Counterpart of ``shasta_tpu/pipeline/assemble.py``: the stage-by-stage
 ``Assembler`` API and ``run_assembly`` (reference: srcMain/main.cpp:516-830,
-mode0Assembly at :845-1045 and mode2Assembly at :1049), addReads through
-the GFA/FASTA output.
+mode0Assembly at :845-1045, mode2Assembly at :1049 and mode3Assembly at
+:1116), addReads through the GFA/FASTA output.
 Every stage persists its outputs to the run directory's stage store in
 the JAX package's ``Data/`` format, so a run directory written by either
 package can be reattached by the other
@@ -13,8 +13,8 @@ The alignment DP runs on the ``device`` (CUDA kernels, or their plain
 PyTorch version on the CPU): method 3's engine, method 4's grouped
 route and the palindrome pass. Methods 0 and 1, iterative assembly and
 every other stage are host code (numpy and the native library), as in
-the JAX package. Not ported yet: mode 3's assembly (ROADMAP.md item 11)
-raises ``NotImplementedError``; the mesh (item 13) is left out.
+the JAX package. Not ported yet: the mesh (ROADMAP.md, queue 1, item 3)
+is left out.
 """
 
 from __future__ import annotations
@@ -69,13 +69,6 @@ def auto_min_coverage(
         )
     except PeakFinderException:
         return fallback
-
-
-def _mode3_not_ported() -> NotImplementedError:
-    return NotImplementedError(
-        "Assembly.mode 3 is not ported yet (ROADMAP.md, modules to port, "
-        "item 11: graph/mode3_path.py, graph/mode3_pathgraph.py)"
-    )
 
 
 class Assembler:
@@ -693,10 +686,8 @@ class Assembler:
 
     def create_marker_graph_edges(self) -> None:
         cm = self.config.marker_graph
-        if self.config.assembly.mode == 3:
-            raise _mode3_not_ported()
-        if self.config.assembly.mode == 2:
-            self._create_marker_graph_edges_mode2()
+        if self.config.assembly.mode in (2, 3):
+            self._create_marker_graph_edges_strict()
             return
         with self.log.stage("createMarkerGraphEdges"):
             MG.create_marker_graph_edges(self.markers, self.marker_graph)
@@ -729,11 +720,13 @@ class Assembler:
             simplify_marker_graph(self.marker_graph, max_lengths)
         self.store.save_stage("MarkerGraph", self.marker_graph.arrays())
 
-    def _create_marker_graph_edges_mode2(self) -> None:
-        """Mode 2's edges: strict edges preserve heterozygous bubbles
-        (reference: createMarkerGraphEdgesStrict), then secondary edges
-        and their split, and prune; no transitive reduction (reference:
-        mode2Assembly, srcMain/main.cpp:1049)."""
+    def _create_marker_graph_edges_strict(self) -> None:
+        """Modes 2 and 3: strict edges preserve heterozygous bubbles
+        (reference: createMarkerGraphEdgesStrict); no transitive
+        reduction. Mode 2 then adds secondary edges and their split, and
+        prunes (reference: mode2Assembly, srcMain/main.cpp:1049); mode 3
+        adds no secondary edges and does not prune (reference:
+        mode3Assembly, srcMain/main.cpp:1116-1145)."""
         from shasta_tpu_torch.graph import mode2 as M2
 
         cm = self.config.marker_graph
@@ -745,6 +738,10 @@ class Assembler:
                 min_edge_coverage=cm.min_edge_coverage,
                 min_edge_coverage_per_strand=cm.min_edge_coverage_per_strand,
             )
+        if self.config.assembly.mode == 3:
+            MG.audit_strand_symmetry(self.marker_graph, "strict edge creation")
+            self.store.save_stage("MarkerGraph", self.marker_graph.arrays())
+            return
         if cm.secondary_edges:
             with self.log.stage("createMarkerGraphSecondaryEdges"):
                 n1 = M2.create_marker_graph_secondary_edges(
@@ -956,6 +953,126 @@ class Assembler:
         self.store.save_stage("AssemblyGraph", self.assembly_graph.arrays())
         return stats
 
+    def assemble_mode3(self) -> Dict:
+        """Mode 3: segments/journeys/links (reference: mode3Assembly,
+        srcMain/main.cpp:1116, src/mode3.cpp)."""
+        from shasta_tpu_torch.graph import mode3 as M3
+
+        ca = self.config.assembly
+        mg = self.marker_graph
+        with self.log.stage("createMode3AssemblyGraph"):
+            m3 = M3.create_mode3_graph(self.markers, mg)
+            self.assembly_graph = m3.ag
+        with self.log.stage("assembleMarkerGraphVertices"):
+            self.vertex_repeats = AG.assemble_marker_graph_vertices(
+                self.reads, self.markers, mg,
+                caller=_vertex_caller_name(ca.consensus_caller),
+            )
+        with self.log.stage("assembleMarkerGraphEdges"):
+            # Jaccard paths traverse segments on either strand, so
+            # every alive edge needs consensus (unlike mode 0, which
+            # assembles one strand per rc pair).
+            self.edge_consensus = AG.assemble_marker_graph_edges(
+                self.reads, self.markers, mg,
+                needed=mg.alive(),
+                caller=get_consensus_caller(ca.consensus_caller),
+                length_threshold_markers=ca.marker_graph_edge_length_threshold_for_consensus,
+            )
+        with self.log.stage("assemble"):
+            AG.assemble_segments(
+                m3.ag, mg, self.markers, self.vertex_repeats, self.edge_consensus
+            )
+        with self.log.stage("writeMode3Outputs"):
+            M3.write_mode3_gfa(
+                os.path.join(self.run_dir, "Mode3-Assembly.gfa"), m3
+            )
+            paths = M3.find_assembly_paths(m3)
+        with self.log.stage("createJaccardGraph"):
+            # (reference: createJaccardGraph, mode3-JaccardGraph.cpp:28)
+            from shasta_tpu_torch.graph import mode3_path as M3P
+
+            conn = M3P.Mode3Connectivity(m3, mg, self.markers)
+            # Iterative construction/cleanup: weak vertices (no strong
+            # incident edge) demote to pass-through and the searches
+            # re-run, so strong edges re-form across them (reference
+            # machinery: removeWeakVertices,
+            # mode3-JaccardGraph.cpp:238-296).
+            jedges, _ = M3P.create_jaccard_graph_iterative(conn)
+            n_strong = sum(1 for e in jedges.values() if e.is_strong)
+            strong_v = set()
+            for e in jedges.values():
+                if e.is_strong:
+                    strong_v.add(e.seg0)
+                    strong_v.add(e.seg1)
+            self.log.line(
+                f"The Jaccard graph has {m3.segment_count} vertices "
+                f"({len(strong_v)} with a strong edge) and "
+                f"{len(jedges)} edges ({n_strong} strong)."
+            )
+            M3P.write_jaccard_edges_csv(
+                os.path.join(self.run_dir, "JaccardGraphEdges.csv"), jedges
+            )
+            cluster_id = M3P.find_jaccard_clusters(m3.segment_count, jedges)
+        with self.log.stage("assembleJaccardPaths"):
+            # (reference: AssemblyPath::assemble,
+            # mode3-AssemblyPath.cpp:28, driven per path as the
+            # explorer does, AssemblerHttpServer-Mode3.cpp:871-907)
+            skeletons = M3P.find_jaccard_paths(m3.segment_count, jedges)
+            assembler = M3P.PathAssembler(
+                m3, conn, mg, self.markers, self.reads,
+                self.vertex_repeats, self.edge_consensus,
+                caller=get_consensus_caller(ca.consensus_caller),
+            )
+            self.mode3_paths = [
+                assembler.assemble_path(s) for s in skeletons
+            ]
+            M3P.write_paths_fasta(
+                os.path.join(self.run_dir, "Mode3-Paths.fasta"),
+                self.mode3_paths,
+            )
+            total_path_length = int(
+                sum(p.raw.shape[0] for p in self.mode3_paths)
+            )
+            path_lens = sorted(
+                (int(p.raw.shape[0]) for p in self.mode3_paths),
+                reverse=True,
+            )
+            path_n50 = 0
+            acc = 0
+            for ln in path_lens:
+                acc += ln
+                if acc * 2 >= total_path_length:
+                    path_n50 = ln
+                    break
+            self.log.line(
+                f"Assembled {len(self.mode3_paths)} Jaccard paths, "
+                f"total {total_path_length} raw bases, N50 {path_n50}."
+            )
+        with self.log.stage("clusterSegments"):
+            # (reference: AssemblyGraph::clusterSegments, mode3.cpp:1201)
+            cluster_id2 = M3.cluster_segments(m3, mg, self.markers)
+            n_clusters = int(cluster_id2.max()) + 1 if cluster_id2.size else 0
+            self.log.line(
+                f"Found {n_clusters} segment clusters covering "
+                f"{int((cluster_id2 >= 0).sum())} of {m3.segment_count} segments."
+            )
+        arrays = m3.arrays()
+        arrays["cluster_id"] = cluster_id2
+        arrays["jaccard_cluster_id"] = cluster_id
+        # reference: flagBackSegments, persisted as Mode3-IsBackSegment
+        arrays["is_back_segment"] = M3.flag_back_segments(m3)
+        self.store.save_stage("Mode3", arrays)
+        return {
+            "mode3SegmentCount": m3.segment_count,
+            "mode3LinkCount": m3.link_count,
+            "mode3PathCount": len(paths),
+            "mode3JaccardEdgeCount": len(jedges),
+            "mode3JaccardPathCount": len(self.mode3_paths),
+            "mode3JaccardPathTotalLength": total_path_length,
+            "mode3JaccardPathN50": path_n50,
+            "mode3ClusterCount": n_clusters,
+        }
+
     def _write_coverage_data(self, length_threshold: int) -> None:
         """Per-position coverage detail of long assembled segments
         (reference: Assembly.storeCoverageData writes
@@ -1094,8 +1211,8 @@ class Assembler:
                 '<li><a href="AssemblySummary.html">Assembly summary</a></li>'
                 '<li><a href="AssemblySummary.json">Assembly summary (JSON)</a></li>'
                 "</ul><p>Interactive exploration (the explore command) is "
-                "not ported to shasta_tpu_torch yet (ROADMAP.md, modules to "
-                "port, item 14).</p></body></html>"
+                "not ported to shasta_tpu_torch yet (ROADMAP.md, queue 1, "
+                "item 4).</p></body></html>"
             )
 
 
@@ -1111,7 +1228,7 @@ def run_assembly(
 ) -> Dict:
     """The full pipeline (reference call sequence: srcMain/main.cpp:516-830,
     then mode0Assembly :845-1045 with its iterative rounds :851-906, or
-    mode2Assembly :1049). Mode 3 raises ``NotImplementedError``.
+    mode2Assembly :1049, or mode3Assembly :1116).
 
     ``device``: where the alignment DP runs, "cuda" (the CUDA kernels;
     raises without a card) or "cpu" (their plain PyTorch version). The
@@ -1125,8 +1242,6 @@ def run_assembly(
 
 
 def _run_assembly_stages(a: "Assembler", input_files: List[str], t0: float) -> Dict:
-    if a.config.assembly.mode == 3:
-        raise _mode3_not_ported()
     a.add_reads(input_files)
     a.select_kmers()
     a.find_markers()
@@ -1190,6 +1305,10 @@ def _run_assembly_stages(a: "Assembler", input_files: List[str], t0: float) -> D
         mode2_stats = a.assemble_mode2()
         summary = a.write_output()
         summary.update(mode2_stats)
+    elif a.config.assembly.mode == 3:
+        mode3_stats = a.assemble_mode3()
+        summary = a.write_output()
+        summary.update(mode3_stats)
     else:
         a.assemble_mode0()
         summary = a.write_output()

@@ -23,7 +23,7 @@ from jax.experimental import pallas as pl
 import shasta_tpu.ops.align as A
 import shasta_tpu.ops.align_pallas as AP
 from shasta_tpu_torch.ops import align_kernel as K
-from tests.torch_common import make_batch, one_torch_thread  # noqa: F401
+from tests.torch_common import make_batch, one_torch_thread, wide_batch  # noqa: F401
 
 KW = dict(match=6, mismatch=-1, gap=-1)
 
@@ -76,11 +76,29 @@ def test_plain_matches_jnp_oracle(seed, LA):
     """The matched pairs and best score equal the jnp oracle
     (banded_forward + traceback), exactly; LA 17 and 1 end inside a
     16-row word of the plain version's dirs."""
-    LB = LA
     W = 128
-    a, a_len, b, b_len, bm = make_batch(seed, LA=LA, LB=LB, W=W)
+    assert_matches_jnp_oracle(*make_batch(seed, LA=LA, LB=LA, W=W), LA=LA, LB=LA, W=W)
+
+
+@pytest.mark.parametrize("W", [16400, 20000])
+def test_plain_matches_jnp_oracle_past_16384(W):
+    """Bands wider than 16384 lanes, which the card runs in tiles of
+    16384 lanes (ROADMAP.md fault 2): the plain version equals the jnp
+    oracle on paths that cross lane 16384 by a run of LEFT moves."""
+    LA = 64
+    a, a_len, b, b_len, bm = wide_batch(LA, W, B=2)
+    fused = assert_matches_jnp_oracle(a, a_len, b, b_len, bm, LA=LA, LB=b.shape[1], W=W)
+    for t in range(2):
+        o0 = np.flatnonzero(fused[t, 16:] >= 0)
+        lanes = fused[t, 16 + o0] - o0 - bm[t]  # the matches' band lanes
+        assert lanes.min() < 16384 < lanes.max(), t
+
+
+def assert_matches_jnp_oracle(a, a_len, b, b_len, bm, *, LA, LB, W):
+    """The port's fused output against the jnp oracle on the wrapper's
+    clamped inputs: each pair's matched ordinals, count, best score and
+    metrics equal. Returns the fused output."""
     fused = port(a, a_len, b, b_len, bm, LA=LA, LB=LB, W=W)
-    # The oracle takes the wrapper's clamped inputs.
     leftpad = LA + W
     ok = (bm >= -leftpad) & (bm <= LB)
     al = np.where(ok, a_len, 0).astype(np.int32)
@@ -103,6 +121,7 @@ def test_plain_matches_jnp_oracle(seed, LA):
             assert list(fused[t, 1:9]) == [
                 o0[0], o0[-1], o1[0], o1[-1], omin, omax, ms, md
             ], t
+    return fused
 
 
 @pytest.mark.parametrize("waves", [2, 4])

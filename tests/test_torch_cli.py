@@ -2,8 +2,8 @@
 package's, and the commands and options it refuses.
 
 The list commands print what the JAX CLI prints. ``assemble`` runs with
-``--device cpu`` on a small seeded input, under mode 2, iterative
-assembly and alignment methods 0, 1 and 4 too; mode 3, which is not
+``--device cpu`` on a small seeded input, under modes 2 and 3, iterative
+assembly and alignment methods 0, 1 and 4 too; ``explore``, which is not
 ported, raises ``NotImplementedError`` naming its ROADMAP.md item.
 """
 
@@ -107,30 +107,23 @@ def test_bash_completion_script(tmp_path, monkeypatch, capsys):
     assert "--device" in text and "Nanopore-May2022" in text
 
 
-def test_unported_options_raise(small_input, tmp_path):
-    """Mode 3's assembly is not ported: it raises, naming its ROADMAP.md
-    item, before the first stage writes its manifest."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 11"):
-        main(assemble_args(small_input, tmp_path / "run", "--Assembly.mode", "3"))
-    assert not (tmp_path / "run" / "Data" / "Reads").exists()
-
-
 @pytest.mark.parametrize(
     "extra",
     [
         ["--Assembly.mode", "2"],
+        ["--Assembly.mode", "3"],
         ["--Assembly.iterative", "true"],
         ["--Align.alignMethod", "0"],
         ["--Align.alignMethod", "1"],
         ["--Align.alignMethod", "4"],
     ],
-    ids=["mode2", "iterative", "align0", "align1", "align4"],
+    ids=["mode2", "mode3", "iterative", "align0", "align1", "align4"],
 )
 def test_ported_options_run_as_the_reference(small_input, tmp_path, extra, capsys):
-    """Mode 2, iterative assembly and alignment methods 0, 1 and 4 run
-    through the assemble command with --device cpu; the summary's counts
-    and stage list and Assembly.fasta equal the JAX CLI's on the same
-    arguments."""
+    """Modes 2 and 3, iterative assembly and alignment methods 0, 1 and 4
+    run through the assemble command with --device cpu; the summary's
+    counts (the mode3* values too) and stage list and Assembly.fasta
+    equal the JAX CLI's on the same arguments."""
     fasta, conf = small_input
     ref_dir = tmp_path / "ref"
     assert ref_main([
@@ -143,7 +136,9 @@ def test_ported_options_run_as_the_reference(small_input, tmp_path, extra, capsy
     assert port["alignmentCount"] > 0
     for key in ("alignmentCount", "markerGraphVertexCount", "markerGraphEdgeCount",
                 "assembledSegmentCount", "totalAssembledSegmentLength",
-                "phasedBubbleCount"):
+                "phasedBubbleCount", "mode3SegmentCount", "mode3LinkCount",
+                "mode3JaccardEdgeCount", "mode3JaccardPathCount",
+                "mode3JaccardPathTotalLength"):
         assert port.get(key) == ref.get(key), key
     assert list(port["stageSeconds"]) == list(ref["stageSeconds"])
     assert (tmp_path / "port" / "Assembly.fasta").read_bytes() == (
@@ -152,7 +147,7 @@ def test_ported_options_run_as_the_reference(small_input, tmp_path, extra, capsy
 
 
 def test_explore_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 14"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1, item 4"):
         main(["--command", "explore", "--assemblyDirectory", "."])
 
 

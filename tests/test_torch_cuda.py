@@ -17,7 +17,7 @@ import torch
 from shasta_tpu_torch.ops import align as A
 from shasta_tpu_torch.ops import align_kernel as K
 from shasta_tpu_torch.utils import synth
-from tests.torch_common import edge_batch, gap_batch, make_batch, mixed_batch
+from tests.torch_common import edge_batch, gap_batch, make_batch, mixed_batch, wide_batch
 
 KW = dict(match=6, mismatch=-1, gap=-1)
 
@@ -50,13 +50,15 @@ def test_kernels_match_plain_on_card(card, LA, W):
     assert K.LAUNCHES["banded_tb"] > before["banded_tb"]
 
 
-def fwd_tb_errors(args, LA, W):
+def fwd_tb_errors(args, LA, W, LB=None):
     """Each banded_fwd body that takes W against banded_fwd_plain (every
     dirs word of a processed row, best, bi, bd), banded_tb against
     banded_tb_plain on the plain dirs, and the fused output against
-    banded_align_pairs_plain: the names of the outputs that differ."""
-    kw = dict(LA=LA, LB=LA, W=W, **KW)
-    pa, pal, pb, pbl, pbm = K.prepare_inputs(*args, LA=LA, LB=LA, W=W)
+    banded_align_pairs_plain: the names of the outputs that differ.
+    LB defaults to LA."""
+    LB = LA if LB is None else LB
+    kw = dict(LA=LA, LB=LB, W=W, **KW)
+    pa, pal, pb, pbl, pbm = K.prepare_inputs(*args, LA=LA, LB=LB, W=W)
     pdirs, pbest, pbi, pbd = K.banded_fwd_plain(pa, pal, pb, pbl, pbm, **kw)
     rows = (torch.arange(K.n_words(LA), device=pa.device)[None, :] * 16) < pal[:, None]
     bad = []
@@ -86,6 +88,24 @@ def test_forward_bodies_match_plain_on_card(card, LA, W):
     a, a_len, b, b_len, bm = make_batch(LA + W, B=8, LA=LA, LB=LA, W=W)
     args = [torch.from_numpy(x).to(card) for x in (a, a_len, b, b_len, bm)]
     assert fwd_tb_errors(args, LA, W) == []
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [16400, 20480, 40000])
+def test_row_scan_body_past_16384_matches_plain_on_card(card, W):
+    """Bands wider than ROWS_SMEM_MAX_W (16384): the row-scan body keeps
+    its rows in device memory and runs each row in tiles of 16384 lanes.
+    Its forward output, the traceback and the fused output equal the
+    plain version bit for bit on paths that cross a tile's edge
+    (tests/torch_common.py:wide_batch, LA 256, 4 pairs)."""
+    LA = 256
+    host = wide_batch(LA, W, B=4)
+    args = [torch.from_numpy(x).to(card) for x in host]
+    assert K.fwd_body(LA, W) == "rows"
+    before = dict(K.LAUNCHES)
+    assert fwd_tb_errors(args, LA, W, LB=host[2].shape[1]) == []
+    assert K.LAUNCHES["banded_fwd"] > before["banded_fwd"]
+    assert K.LAUNCHES["banded_tb"] > before["banded_tb"]
 
 
 @pytest.mark.cuda

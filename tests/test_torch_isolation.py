@@ -39,8 +39,9 @@ assert rc == 0, rc
 summary = json.loads(out.getvalue())
 assert summary["alignmentCount"] == 1992, summary["alignmentCount"]
 assert summary["assembledSegmentCount"] == 1, summary["assembledSegmentCount"]
-# A mode-2 run and an alignment-method-4 run of the same input.
-for extra in (["--Assembly.mode", "2"], ["--Align.alignMethod", "4"]):
+# Mode-2, mode-3 and alignment-method-4 runs of the same input.
+for extra in (["--Assembly.mode", "2"], ["--Assembly.mode", "3"],
+              ["--Align.alignMethod", "4"]):
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         rc = main(["--command", "assemble", "--config", conf, "--input", fa,
@@ -51,6 +52,9 @@ for extra in (["--Assembly.mode", "2"], ["--Align.alignMethod", "4"]):
     assert summary["alignmentCount"] > 0, extra
     if extra[1] == "2":
         assert "assemblyGraph2" in summary["stageSeconds"]
+    if extra[1] == "3":
+        assert "createJaccardGraph" in summary["stageSeconds"]
+        assert summary["mode3SegmentCount"] >= 1
 bad = sorted(
     k for k in sys.modules
     if k in ("jax", "shasta_tpu") or k.startswith(("jax.", "jaxlib", "shasta_tpu."))
@@ -62,7 +66,7 @@ print("LEAKED", bad)
 def test_package_runs_without_jax_or_reference(tmp_path):
     """A fresh interpreter imports every module of the port, the CLI
     included, and runs the whole assemble command on the golden input
-    on the CPU, under mode 0, mode 2 and alignment method 4; neither jax
+    on the CPU, under modes 0, 2 and 3 and alignment method 4; neither jax
     nor shasta_tpu is loaded."""
     env = dict(os.environ, OMP_NUM_THREADS="1")
     env.pop("PYTHONPATH", None)

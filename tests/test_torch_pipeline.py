@@ -130,11 +130,22 @@ def test_reattached_to_reference_run_dir(golden):
     assert stage_hashes(run_dir)["Alignments"] == pinned["Alignments"]
 
 
-def test_mode3_edges_raise(tmp_path):
-    """Mode 3's marker-graph edges are not in this slice: the stage
-    raises, naming the ROADMAP item that ports mode 3."""
-    cfg = port_small_config()
-    cfg.assembly.mode = 3
-    asm = Assembler(str(tmp_path / "run"), cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 11"):
+def test_mode3_edges_equal_reference(golden):
+    """Mode 3's marker-graph edges on the golden run's vertices: strict
+    edges only (no secondary edges, no prune), then the strand audit and
+    the MarkerGraph manifest, equal array by array to the JAX
+    package's."""
+    d, ref, port, _pinned = golden
+    runs = []
+    for asm in (ref, port):
+        asm.config.assembly.mode = 3
+        asm.create_read_graph()
+        asm.create_marker_graph_vertices()
         asm.create_marker_graph_edges()
+        runs.append(asm.store.load_stage("MarkerGraph"))
+    ra, pa = runs
+    assert sorted(pa) == sorted(ra)
+    for name in ra:
+        assert pa[name].dtype == ra[name].dtype, name
+        assert np.array_equal(pa[name], ra[name]), name
+    assert port.marker_graph.edge_count > 0

@@ -230,3 +230,54 @@ def grouped_inputs(cases=GROUPED, seed=404):
             bmins.append(-shift - w // 2 + int(rng.integers(-(w // 8), w // 8 + 1)))
             widths.append(w)
     return a_rows, b_rows, np.asarray(bmins, np.int64), np.asarray(widths, np.int64)
+
+
+def wide_batch(LA=64, W=16400, B=2, seed=31):
+    """Pairs in a band wider than 16384 lanes, the widest whose rows the
+    row-scan body keeps in shared memory; past it the card runs each row
+    in tiles of 16384 lanes. b is long enough (LB = W + LA) that every
+    lane of the band lies inside the matrix on some row. Each pair's a
+    is a stretch of b with 10% substitutions, and b carries an insertion
+    of L bases halfway along it, placed so that the path's lane jumps
+    across a multiple of 16384 (a run of LEFT moves that the prefix max
+    carries from one tile to the next). Odd pairs end on b's last column
+    three rows before a's last row; the band starts at lane 0 or up to 2
+    lanes left of j - i = 0."""
+    LB = W + LA
+    rng = np.random.default_rng(seed)
+    a = np.full((B, LA), -1, np.int32)
+    b = np.full((B, LB), -2, np.int32)
+    a_len = np.full(B, LA, np.int32)
+    b_len = np.zeros(B, np.int32)
+    bm = np.zeros(B, np.int32)
+    n_edges = max(1, (W - 1) // 16384)
+    for t in range(B):
+        edge = 16384 * (1 + (t // 2) % n_edges)
+        L = max(2, min(LA // 2, 2 * (W - edge) - 8))
+        c = edge - L // 2
+        cut = LA // 2
+        x = rng.integers(0, 50, LA).astype(np.int32)
+        bg = rng.integers(0, 50, LB).astype(np.int32)
+        bg[c : c + cut] = x[:cut]
+        bg[c + cut + L : c + L + LA] = x[cut:]
+        sub = rng.random(LA) < 0.1
+        x[sub] = rng.integers(0, 50, int(sub.sum()))
+        a[t] = x
+        b_len[t] = LB if t % 2 == 0 else c + L + LA - 3
+        b[t, : b_len[t]] = bg[: b_len[t]]
+        bm[t] = -(t % 3)
+    return a, a_len, b, b_len, bm
+
+
+def palindrome_reads(n=6):
+    """The first ``n`` reads of the mode-0 golden input (a 25 kb genome,
+    seed 4242; 130 reads of 3 kb from both strands, seed 4243), made
+    with the port's utils/synth.py, and one palindromic read: 1.5 kb of
+    the golden genome followed by its reverse complement."""
+    from shasta_tpu_torch.data import bases as B
+    from shasta_tpu_torch.utils import synth
+
+    genome = synth.random_genome(25000, seed=4242)
+    reads = synth.sample_reads(genome, 130, 3000, seed=4243, both_strands=True)[:n]
+    half = genome[1000:2500]
+    return reads + [np.concatenate([half, B.reverse_complement(half)])]
