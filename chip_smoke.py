@@ -83,12 +83,30 @@ no result line):
    read just after, 128 kept pairs re-aligned with the plain version on
    the card, Mode3-Paths.fasta graded against the genome; it fails if no
    Jaccard path is assembled.
+9. The mesh (shasta_tpu_torch/parallel), in ranks that
+   parallel.distributed.spawn starts: (a) every sharded function on a
+   one-rank NCCL world on the card against its host function on seeded
+   inputs (the plain DP on the card for the alignment wrappers), then
+   entry.dryrun_multichip(1); (b) run_assembly_distributed on two gloo
+   ranks that share the card, on the golden inputs of modes 0 and 2:
+   every golden value in both ranks' run directories, mode 0's FASTA and
+   GFA byte-equal to phase 3's; (c) phase 4's 5 Mb run under
+   Nanopore-May2022 on two gloo ranks that share the card: Assembly.fasta
+   and Assembly.gfa byte-equal to phase 4's. Each rank prints its stage
+   seconds, launches by class, kernels' device time, peak device memory
+   and the exchange's seconds (all_to_all, MIN rounds, gathers); launch
+   counts start from 0 in each rank, which must launch both kernels.
+10. The explorer on the card (http/explore.py) over phase 3's golden run
+   and phase 8a's noisy mode-3 run: tests/test_cli.py's pages and the
+   mode-3 pages answer 200, and the on-demand alignment of a stored
+   alignment's reads launches the kernels.
 
 The grades record accuracy and gate nothing: no floor has been measured.
 
 Each phase's seconds print. The line before the last is
 {"kernels": [...]}, each kernel's launches summed over the paths that
-ran it (``paths``); the last line is {"ok": true, "device": {...}}.
+ran it (``paths``: the runs of phases 4 to 10, the mesh's ranks and
+the explorer included); the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -1800,6 +1818,384 @@ def _align_params(cfg):
 
 
 # ---------------------------------------------------------------------------
+# Phase 9: the mesh
+# ---------------------------------------------------------------------------
+#
+# The rank bodies below run in processes that
+# shasta_tpu_torch.parallel.distributed.spawn starts (they import this
+# file as a module, so they are defined at its top level); each returns
+# host values.
+
+
+def u32_mix(x, seed):
+    """The JAX package's uint32 mixer (parallel/mesh.py:_mix64) in numpy,
+    whose uint32 arithmetic wraps."""
+    h = x.astype(np.uint32) ^ np.uint32(seed & 0xFFFFFFFF)
+    h = (h ^ (h >> np.uint32(16))) * np.uint32(0x7FEB352D)
+    h = (h ^ (h >> np.uint32(15))) * np.uint32(0x846CA68B)
+    return h ^ (h >> np.uint32(16))
+
+
+def hooking_rounds_host(n, u, v, rounds, jumps):
+    """parallel/mesh.py's min-hooking rounds on one host, in numpy."""
+    label = np.arange(n, dtype=np.int64)
+    for _ in range(rounds):
+        lu, lv = label[u], label[v]
+        prop = label.copy()
+        np.minimum.at(prop, np.maximum(lu, lv), np.minimum(lu, lv))
+        label = prop
+        for _ in range(jumps):
+            label = label[label]
+    return label
+
+
+def mesh_checks_rank(mesh, golden_run):
+    """Phase 9 (a) on one rank: every sharded function of parallel/mesh.py
+    on seeded inputs against its host function (the plain DP on the card
+    for the alignment wrappers); the names of those checked, with the
+    launch counts (from 0) and the collectives."""
+    from shasta_tpu_torch.data.markers import MarkerStore
+    from shasta_tpu_torch.data.store import RunStore
+    from shasta_tpu_torch.graph.marker_graph import union_find_labels
+    from shasta_tpu_torch.ops import align as AL
+    from shasta_tpu_torch.ops import align_kernel as K
+    from shasta_tpu_torch.ops import lowhash as LH
+    from shasta_tpu_torch.parallel import mesh as M
+
+    reset_launches()
+    dev = mesh.device
+    rng = np.random.default_rng(900)
+    done = []
+
+    def check(name, ok):
+        if not ok:
+            raise AssertionError(f"mesh {name} differs from its host function")
+        done.append(name)
+
+    # LowHash step: 65,536 reads of m = 4 features.
+    feats = rng.integers(0, 2**32, (1 << 16, 4), dtype=np.uint32)
+    h, bucket, hist = M.fetch_tree(M.sharded_lowhash_step(mesh, feats, 5, 12))
+    ref = np.zeros(feats.shape[0], np.uint32)
+    for j in range(4):
+        ref = u32_mix(feats[:, j] ^ ref, 5 * 37 + j)
+    check("sharded_lowhash_step", np.array_equal(h, ref) and np.array_equal(
+        bucket, ref & 4095) and np.array_equal(hist, np.bincount(ref & 4095, minlength=4096)))
+    # Candidates on the golden run's Markers, small_config's LowHash.
+    markers = MarkerStore.from_arrays(RunStore(golden_run, create=False).load_stage("Markers"))
+    params = LH.LowHashParams(m=4, hash_fraction=0.05, iteration_count=6, max_bucket_size=60)
+    host = LH.find_candidates_lowhash(markers, params)
+    shard = M.sharded_find_candidates(mesh, markers, params)
+    check("sharded_find_candidates", host.count == shard.count > 0 and all(
+        np.array_equal(getattr(host, f), getattr(shard, f))
+        for f in ("read_id0", "read_id1", "same_strand", "frequency")))
+    # Union-find on 2^20 items and 2^21 random edges.
+    n = 1 << 20
+    u = rng.integers(0, n, 1 << 21).astype(np.int32)
+    v = rng.integers(0, n, 1 << 21).astype(np.int32)
+    raw = M.fetch(M.sharded_union_find(mesh, n, u, v, n_rounds=3))
+    check("sharded_union_find", np.array_equal(raw, hooking_rounds_host(n, u, v, 3, 8)))
+    check("sharded_union_find_labels", np.array_equal(
+        M.sharded_union_find_labels(mesh, n, u, v), union_find_labels(n, u, v)))
+    # The alignment wrappers: 64 pairs at LA 1024 x W 128 (60 real, padded).
+    LA, W = 1024, 128
+    a, a_len, b, b_len, bm = make_batch(901, 64, LA, W)
+    a_len[60:] = 0
+    b_len[60:] = 0
+    args = [torch.from_numpy(x).to(dev) for x in (a, a_len, b, b_len, bm)]
+    kw = dict(LA=LA, LB=LA, W=W, match=6, mismatch=-1, gap=-1)
+    plain = K.banded_align_pairs_plain(*args, **kw)
+    check("sharded_pallas_align", torch.equal(
+        M.sharded_pallas_align(mesh, a, a_len, b, b_len, bm, **kw), plain))
+    check("sharded_forward_traceback", torch.equal(M.sharded_forward_traceback(
+        mesh, a, a_len, b, b_len, bm, W=W, match=6, mismatch=-1, gap=-1), plain))
+    pa = K.prepare_inputs(*args, LA=LA, LB=LA, W=W)
+    _d, best, bi, bd = K.banded_fwd_plain(*pa, **kw)
+    got = M.sharded_banded_forward(mesh, a, a_len, b, b_len, bm, W=W)
+    check("sharded_banded_forward", all(torch.equal(x, y) for x, y in zip(got, (bi, bd, best))))
+    # The take feed and the band reduction on a CSR of pairs 1 to 59's
+    # rows (every row in the length class LA).
+    rows = [a[t, : a_len[t]] for t in range(1, 60)] + [b[t, : b_len[t]] for t in range(1, 60)]
+    lens = np.array([r.shape[0] for r in rows], np.int64)
+    off = np.concatenate(([0], np.cumsum(lens)))
+    aux = np.concatenate([np.sort(rng.choice(4 * int(x), int(x), replace=False)) for x in lens])
+    csr = AL._DeviceCsr(np.concatenate(rows), off, lens, dev, aux=aux.astype(np.int32))
+    ia, ib = np.arange(59), np.arange(59, 118)
+    ra, rb = csr.local[ia], csr.local[ib]
+    ma, mb = csr.matrix(LA), csr.matrix(LA)
+    al, bl = lens[ia].astype(np.int32), lens[ib].astype(np.int32)
+    tbm = bm[1:60]
+    pt = [torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in (ra, rb, al, bl, tbm)]
+    fused = K.banded_align_pairs_plain(
+        AL._take_rows(ma, pt[0], pt[2], -1), pt[2], AL._take_rows(mb, pt[1], pt[3], -2),
+        pt[3], pt[4], **kw)
+    check("sharded_align_take", torch.equal(
+        M.sharded_align_take(mesh, ma, ra, mb, rb, al, bl, tbm, **kw), fused))
+    oa, ob = csr.aux_matrix(LA), csr.aux_matrix(LA)
+    band = K.band_reduce(
+        fused[:, 16:], AL._take_rows(oa, pt[0], pt[2], 0), AL._take_rows(ob, pt[1], pt[3], 0))
+    check("sharded_band_take", torch.equal(
+        M.sharded_band_take(mesh, ma, ra, oa, mb, rb, ob, al, bl, tbm, **kw), band))
+    # full_step on 4,096 features, the batch, and 2^16 edges on 2^14 items.
+    eu = rng.integers(0, 1 << 14, 1 << 16).astype(np.int32)
+    ev = rng.integers(0, 1 << 14, 1 << 16).astype(np.int32)
+    fhist, fbest, flabel = M.fetch_tree(M.full_step(
+        mesh, feats[:4096], a, a_len, b, b_len, bm, eu, ev, 1 << 14, W=W, log2_buckets=8))
+    ref = np.zeros(4096, np.uint32)
+    for j in range(4):
+        ref = u32_mix(feats[:4096, j] ^ ref, 37 + j)
+    check("full_step", np.array_equal(fhist, np.bincount(ref & 255, minlength=256))
+          and np.array_equal(fbest, best.cpu().numpy())
+          and np.array_equal(flabel, hooking_rounds_host(1 << 14, eu, ev, 8, 2)))
+    return {"checks": done, "launches": dict(K.LAUNCHES), "calls": dict(mesh.calls),
+            "seconds": dict(mesh.seconds)}
+
+
+def golden_distributed_rank(mesh, work):
+    """Phase 9 (b) on one rank: run_assembly_distributed on the golden
+    inputs of modes 0 and 2 (rank 0 writes the run directory, the others
+    .process{rank}); launch counts from 0 for the two runs."""
+    from shasta_tpu_torch.__main__ import _apply_overrides
+    from shasta_tpu_torch.ops import align_kernel as K
+    from shasta_tpu_torch.parallel.distributed import run_assembly_distributed
+    from shasta_tpu_torch.pipeline.config import AssemblyConfig
+
+    reset_launches()
+    out = {}
+    for mode, fasta, overrides in (
+        (0, "golden.fasta", SMALL_OVERRIDES), (2, "golden-mode2.fasta", MODE2_OVERRIDES),
+    ):
+        cfg = _apply_overrides(AssemblyConfig(), list(overrides))
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            summary = run_assembly_distributed(
+                [os.path.join(work, fasta)], os.path.join(work, f"mesh2-mode{mode}"), cfg,
+                device=mesh.device, backend=mesh.backend,
+            )
+        out[mode] = {"seconds": time.perf_counter() - t0, "summary": summary}
+    out["launches"] = dict(K.LAUNCHES)
+    return out
+
+
+def real_size_rank(mesh, fasta, run_dir, sm_clock_mhz):
+    """Phase 9 (c) on one rank: phase 4's run on the mesh (rank 0 writes
+    ``run_dir``, the others .process{rank}, as run_assembly_distributed
+    does); launch counts from 0 just before, read just after, with the
+    launch trace, peak device memory and the collectives' seconds."""
+    from shasta_tpu_torch.ops import align_kernel as K
+    from shasta_tpu_torch.pipeline.assemble import run_assembly
+    from shasta_tpu_torch.pipeline.config import AssemblyConfig
+    from shasta_tpu_torch.pipeline.configurations import get_configuration
+
+    cfg = AssemblyConfig.from_conf_text(get_configuration("Nanopore-May2022"))
+    if mesh.rank:
+        run_dir = os.path.join(run_dir, f".process{mesh.rank}")
+    reset_launches()
+    K.TRACE = []
+    torch.cuda.reset_peak_memory_stats(mesh.device)
+    t0 = time.perf_counter()
+    with waves_env(None), contextlib.redirect_stdout(io.StringIO()):
+        summary = run_assembly([fasta], run_dir, cfg, mesh=mesh)
+    wall = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    trace, K.TRACE = K.TRACE, None
+    torch.cuda.synchronize(mesh.device)
+    shapes = kernel_classes(trace, sm_clock_mhz, f"rank {mesh.rank}", echo=False)
+    return {
+        "rank": mesh.rank, "wall_s": wall, "times": summary["stageSeconds"],
+        "launches": launches, "shapes": shapes,
+        "fwd_ms": sum(c["device_ms"] for c in shapes if c["kernel"] == "banded_fwd"),
+        "tb_ms": sum(c["device_ms"] for c in shapes if c["kernel"] == "banded_tb"),
+        "peak_bytes": torch.cuda.max_memory_allocated(mesh.device),
+        "exchange_s": dict(mesh.seconds), "exchange_calls": dict(mesh.calls),
+        "segments": summary["assembledSegmentCount"],
+        "alignments": summary["alignmentCount"],
+    }
+
+
+def phase_mesh(work, real, sm_clock_mhz):
+    """Phase 9: the mesh on the card. (a) every sharded function on a
+    one-rank NCCL world against its host function, then
+    dryrun_multichip(1); (b) run_assembly_distributed on two gloo ranks
+    that share the card, on the golden inputs of modes 0 and 2: every
+    golden value in both ranks' run directories; (c) phase 4's 5 Mb run on
+    two gloo ranks that share the card: Assembly.fasta and Assembly.gfa
+    byte-equal to phase 4's."""
+    from shasta_tpu_torch.entry import dryrun_multichip
+    from shasta_tpu_torch.parallel.distributed import spawn
+
+    torch.cuda.empty_cache()
+    out = {}
+    t0 = time.perf_counter()
+    (a,) = spawn(mesh_checks_rank, 1, device="cuda", args=(os.path.join(work, "golden-cuda"),),
+                 timeout=600)
+    if a["launches"]["banded_fwd"] == 0 or a["launches"]["banded_tb"] == 0:
+        raise AssertionError(f"mesh (a): a kernel never launched: {a['launches']}")
+    log(f"mesh (a) one NCCL rank: {', '.join(a['checks'])} equal to the host functions; "
+        f"launches {a['launches']}; collectives {a['calls']}; {time.perf_counter() - t0:.1f}s")
+    t1 = time.perf_counter()
+    line = dryrun_multichip(1, device="cuda", timeout=600)
+    out["a"] = {**a, "dryrun": line, "seconds": time.perf_counter() - t0,
+                "dryrun_s": time.perf_counter() - t1}
+    log(f"mesh (a) dryrun_multichip(1) on the card: {time.perf_counter() - t1:.1f}s")
+
+    t0 = time.perf_counter()
+    ranks = spawn(golden_distributed_rank, 2, device="cuda", backend="gloo", args=(work,),
+                  timeout=600)
+    with open(GOLDEN) as f:
+        pinned0 = json.load(f)
+    with open(GOLDEN_MODE2) as f:
+        pinned2 = json.load(f)
+    with open(GOLDEN_METRICS) as f:
+        metrics = json.load(f)
+    for mode, pinned in ((0, pinned0), (2, pinned2)):
+        run_dir = os.path.join(work, f"mesh2-mode{mode}")
+        for d in (run_dir, os.path.join(run_dir, ".process1")):
+            got = stage_hashes(d)
+            got.update(file_hashes(d, [k[5:] for k in pinned if k.startswith("file:")]))
+            bad = sorted(k for k in pinned if got.get(k) != pinned[k])
+            if bad:
+                raise AssertionError(f"mesh (b) mode {mode} {d}: golden values differ: {bad}")
+        summary = ranks[0][mode]["summary"]
+        if ranks[1][mode]["summary"] is not None:
+            raise AssertionError("mesh (b): rank 1 returned a summary")
+        if mode == 0 and {k: summary[k] for k in GOLDEN_KEYS} != metrics:
+            raise AssertionError(f"mesh (b): metrics differ from mode0_metrics.json")
+        for name in OUTPUTS if mode == 0 else []:
+            with open(os.path.join(run_dir, name), "rb") as f, open(
+                os.path.join(work, "golden-cuda", name), "rb"
+            ) as g:
+                if f.read() != g.read():
+                    raise AssertionError(f"mesh (b): {name} differs from phase 3's")
+    launches = {k: ranks[0]["launches"][k] + ranks[1]["launches"][k] for k in ranks[0]["launches"]}
+    if launches["banded_fwd"] == 0 or launches["banded_tb"] == 0:
+        raise AssertionError(f"mesh (b): a kernel never launched: {launches}")
+    out["b"] = {"launches": launches, "seconds": time.perf_counter() - t0,
+                "ranks": [{m: r[m]["seconds"] for m in (0, 2)} for r in ranks]}
+    log(f"mesh (b) two gloo ranks on the card: modes 0 and 2 give every golden value "
+        f"(both ranks' directories), mode 0's files byte-equal to phase 3's; launches "
+        f"{launches} (rank 0 {ranks[0]['launches']}); {time.perf_counter() - t0:.1f}s")
+
+    t0 = time.perf_counter()
+    run_dir = os.path.join(work, "ont5mb-mesh2")
+    ranks = spawn(real_size_rank, 2, device="cuda", backend="gloo",
+                  args=(os.path.join(work, "ont5mb.fasta"), run_dir, sm_clock_mhz), timeout=900)
+    wall = time.perf_counter() - t0
+    for name in ("Assembly.fasta", "Assembly.gfa"):
+        for d in (run_dir, os.path.join(run_dir, ".process1")):
+            with open(os.path.join(d, name), "rb") as f, open(
+                os.path.join(real["dir"], name), "rb"
+            ) as g:
+                if f.read() != g.read():
+                    raise AssertionError(f"mesh (c): {d}/{name} differs from phase 4's")
+    for r in ranks:
+        if r["launches"]["banded_fwd"] == 0 or r["launches"]["banded_tb"] == 0:
+            raise AssertionError(f"mesh (c) rank {r['rank']}: a kernel never launched")
+        ex = r["exchange_s"]
+        log(
+            f"mesh (c) rank {r['rank']}: run_assembly {r['wall_s']:.2f}s; stage seconds: "
+            + ", ".join(f"{k} {v:.2f}" for k, v in r["times"].items())
+        )
+        log(
+            f"mesh (c) rank {r['rank']}: launches {r['launches']}; kernel device time fwd "
+            f"{r['fwd_ms']:.1f} ms, tb {r['tb_ms']:.1f} ms; peak device memory "
+            f"{r['peak_bytes'] / 2**30:.2f} GiB; exchange {sum(ex.values()):.2f}s ("
+            + ", ".join(f"{k} {v:.2f}s in {r['exchange_calls'][k]}" for k, v in ex.items())
+            + ")"
+        )
+        for c in r["shapes"]:
+            log(f"  [rank {r['rank']}] {c['kernel']} ({c['body']}) LA={c['LA']} W={c['W']}: "
+                f"{c['launches']} launches, {c['pairs']} pairs, {c['device_ms']:.2f} ms")
+    launches = {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]}
+    out["c"] = {"wall_s": wall, "launches": launches, "ranks": ranks}
+    log(f"mesh (c) two gloo ranks on the card, 5 Mb: {wall:.2f}s wall (spawn included); "
+        f"Assembly.fasta and Assembly.gfa byte-equal to phase 4's in both ranks' "
+        f"directories; launches {launches}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: the explorer
+# ---------------------------------------------------------------------------
+
+
+# tests/test_cli.py:test_assemble_cli_end_to_end's explorer paths.
+EXPLORER_PATHS = [
+    "/", "/read?readId=0&strand=0", "/alignments?readId=0",
+    "/read?readId=read-0&strand=0", "/readGraph?readId=0", "/markerGraph?vertexId=0",
+    "/localReadGraph?readId=0&strand=0", "/localMarkerGraph?vertexId=0&maxDistance=2",
+    "/localMarkerGraph?vertexId=0&maxDistance=2&label=sequence&color=distance",
+    "/alignmentMatrix?readId0=0&readId1=1", "/assemblyGraph?segment=0&maxDistance=2",
+    "/alignment?readId0=0&strand0=0&readId1=1&strand1=0",
+    "/blastRead?readId=0&strand=0&beginPosition=0&endPosition=400",
+    "/exploreAlignmentCoverage?readId=0&strand=0", "/computeAllAlignments?readId=0",
+    "/exploreAlignmentCandidateGraph?readId=0", "/exploreAlignmentGraph?readId=0",
+    "/alignSequencesInBaseRepresentation?sequence0=ACGTACGT&sequence1=ACGGACGT",
+    "/assessAlignments", "/markerGraphEdge?edgeId=0",
+    "/exploreMarkerCoverage?readId=0&strand=0", "/inducedAlignment?readId0=0&readId1=1",
+    "/followReadInMarkerGraph?readId=0&strand=0",
+    "/exploreMarkerConnectivity?readId=0&strand=0&ordinal=0",
+    "/assemblyGraphEdge?edgeId=0", "/exploreAssemblyGraphEdgesSupport?edgeId=0",
+    "/compressedAssemblyGraph?edgeId=0", "/assemblySummary.json",
+]
+# tests/test_mode3.py:test_mode3_pipeline's mode-3 pages.
+MODE3_PAGES = [
+    "/mode3?segmentId=0", "/mode3Segment?segmentId=0",
+    "/mode3SegmentPair?segmentId0=0&segmentId1=1", "/mode3Link?linkId=0",
+    "/mode3MetaAlignment?readId0=0&readId1=1", "/mode3AssemblyPath?segmentId=0",
+    "/mode3LinkAssembly?linkId=0",
+]
+
+
+def phase_explorer(work):
+    """Phase 10: the explorer on the card over phase 3's golden run and
+    phase 8a's noisy mode-3 run: every page GETs 200, and the on-demand
+    alignment of a stored alignment's two reads launches the kernels
+    (counts from 0 just before the pages, read just after)."""
+    import urllib.request
+    from http.server import HTTPServer
+
+    from shasta_tpu_torch.data.store import RunStore
+    from shasta_tpu_torch.http.explore import Explorer, make_handler
+    from shasta_tpu_torch.ops import align_kernel as K
+    from shasta_tpu_torch.ops.align import AlignmentStore
+
+    out = {}
+    for label, run, pages in (
+        ("golden", "golden-cuda", EXPLORER_PATHS), ("mode3", "mode3-noisy-cuda", MODE3_PAGES),
+    ):
+        run_dir = os.path.join(work, run)
+        al = AlignmentStore.from_arrays(RunStore(run_dir, create=False).load_stage("Alignments"))
+        on_demand = (
+            f"/alignment?readId0={int(al.read_id0[0])}&strand0=0&readId1="
+            f"{int(al.read_id1[0])}&strand1={0 if al.same_strand[0] else 1}"
+        )
+        server = HTTPServer(("127.0.0.1", 0), make_handler(Explorer(run_dir)))
+        t = threading.Thread(target=server.serve_forever, daemon=True)
+        t.start()
+        reset_launches()
+        t0 = time.perf_counter()
+        try:
+            for path in pages + [on_demand]:
+                url = f"http://127.0.0.1:{server.server_address[1]}{path}"
+                with urllib.request.urlopen(url, timeout=120) as r:
+                    body = r.read()
+                    if r.status != 200 or not body:
+                        raise AssertionError(f"explorer {label} {path}: {r.status}")
+        finally:
+            server.shutdown()
+            server.server_close()
+            t.join()
+        launches = dict(K.LAUNCHES)
+        if b"aligned markers" not in body or launches["banded_tb"] == 0:
+            raise AssertionError(f"explorer {label}: on-demand alignment {launches}, {body[:200]}")
+        out[label] = {"pages": len(pages) + 1, "launches": launches,
+                      "seconds": time.perf_counter() - t0}
+        log(f"explorer {label}: {len(pages) + 1} pages 200 on the card "
+            f"({time.perf_counter() - t0:.2f}s), launches {launches}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1828,6 +2224,8 @@ def main() -> int:
         run(7, phase_iterative, work)
         out["mode3_test_inputs"] = run(8, phase_mode3_test_inputs, work)
         out["mode3_real_size"] = run(8, phase_mode3_real_size, work, sm_clock)
+        out["mesh"] = run(9, phase_mesh, work, real, sm_clock)
+        out["explorer"] = run(10, phase_explorer, work)
     log("phase seconds: " + ", ".join(f"{n} {t:.1f}" for n, t in sorted(seconds.items())))
     card = smi("name,power.limit")
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -1855,8 +2253,10 @@ def kernel_line(kernels, real, out):
     the paths that ran it, each counted from 0 just before its run: the
     mode-0 real-size run (phase 4), its computeAlignments rerun under
     waves 2, the mode-2 real-size run (phase 6), the mode-2 golden run
-    under waves 2 (phase 5), method 4 at a real size (phase 7) and the
-    mode-3 real-size run (phase 8).
+    under waves 2 (phase 5), method 4 at a real size (phase 7), the
+    mode-3 real-size run (phase 8), the mesh's runs (phase 9: the
+    one-rank NCCL checks, and the sum over the two gloo ranks of the
+    golden and 5 Mb runs) and the explorer's pages (phase 10).
     Times are phase 2's at the listed shape whose class took the most
     banded_fwd time on the mode-0 run."""
     paths = {
@@ -1866,6 +2266,11 @@ def kernel_line(kernels, real, out):
         "mode2-waves2": out["mode2_golden"]["mode2-golden-cuda-waves2"]["launches"],
         "method4": out["method4_real_size"]["launches"],
         "mode3": out["mode3_real_size"]["launches"],
+        "mesh-1rank-nccl": out["mesh"]["a"]["launches"],
+        "mesh-2ranks-golden": out["mesh"]["b"]["launches"],
+        "mesh-2ranks-5mb": out["mesh"]["c"]["launches"],
+        "explorer": {k: sum(e["launches"][k] for e in out["explorer"].values())
+                     for k in out["explorer"]["golden"]["launches"]},
     }
 
     def launched(name):

@@ -4,13 +4,14 @@
         --input reads.fasta --assemblyDirectory run [--device cpu]
 
 Counterpart of ``shasta_tpu/__main__.py``, with the reference's command
-surface (reference: srcMain/main.cpp:68-76): assemble, saveBinaryData,
-cleanupBinaryData, listCommands, listConfigurations, listConfiguration,
-createBashCompletionScript. ``explore`` is not ported yet and raises.
-Options use the same two-tier scheme: a --config (built-in name or conf
-file) plus --Section.key value overrides (reference:
-src/AssemblerOptions.hpp:9-60). ``--device`` says where the alignment DP
-runs: ``cuda`` (the default; raises without a card) or ``cpu``.
+surface (reference: srcMain/main.cpp:68-76): assemble, explore,
+saveBinaryData, cleanupBinaryData, listCommands, listConfigurations,
+listConfiguration, createBashCompletionScript. Options use the same
+two-tier scheme: a --config (built-in name or conf file) plus
+--Section.key value overrides (reference: src/AssemblerOptions.hpp:9-60).
+``--device`` says where the alignment DP runs (assemble, and explore's
+on-demand alignments): ``cuda`` (the default; raises without a card) or
+``cpu``.
 """
 
 from __future__ import annotations
@@ -47,9 +48,20 @@ def main(argv=None):
     parser.add_argument(
         "--assemblyDirectory", default="ShastaRun", help="Run directory"
     )
+    parser.add_argument("--port", type=int, default=17100, help="explore: HTTP port")
+    parser.add_argument(
+        "--exploreAccess",
+        default="user",
+        help="explore: who may connect (user|local|unrestricted)",
+    )
+    parser.add_argument(
+        "--alignmentsPafFile",
+        default=None,
+        help="explore: PAF of read-to-reference alignments (ground-truth overlay)",
+    )
     parser.add_argument(
         "--device", default="cuda",
-        help="assemble: where the alignment DP runs (cuda|cpu)",
+        help="assemble and explore: where the alignment DP runs (cuda|cpu)",
     )
     args, overrides = parser.parse_known_args(argv)
 
@@ -73,7 +85,7 @@ def main(argv=None):
             f'        COMPREPLY=($(compgen -W "{" ".join(CONFIGURATIONS)}" -- "$cur"))\n'
             "    else\n"
             '        COMPREPLY=($(compgen -W "--command --input --config '
-            '--assemblyDirectory --device" -- "$cur"))\n'
+            '--assemblyDirectory --port --device" -- "$cur"))\n'
             "    fi\n"
             "}\n"
             "complete -F _shasta_tpu_torch_completion shasta_tpu_torch\n"
@@ -103,10 +115,18 @@ def main(argv=None):
         return _assemble(args, overrides)
 
     if args.command == "explore":
-        raise NotImplementedError(
-            "The explore command is not ported yet (ROADMAP.md, queue 1, "
-            "item 4: http/explore.py)"
+        from shasta_tpu_torch.http.explore import run_explorer
+
+        if args.alignmentsPafFile and not os.path.isfile(args.alignmentsPafFile):
+            raise SystemExit(f"{args.alignmentsPafFile} not found.")
+        run_explorer(
+            args.assemblyDirectory,
+            port=args.port,
+            access=args.exploreAccess,
+            paf_file=args.alignmentsPafFile,
+            device=args.device,
         )
+        return 0
 
     if args.command == "saveBinaryData":
         src = os.path.join(args.assemblyDirectory, "Data")

@@ -22,6 +22,13 @@ The shape classes (``_LEN_BUCKETS``, ``_W_BUCKETS``) and the band
 centring ``bm = bmins - (w_k - widths) // 2`` are kept exactly: the W
 class decides which band is aligned, so it is semantics, not tuning.
 Batch sizes are the port's own (results are per pair).
+
+Under a mesh (``parallel.context.current_mesh()``, installed by the
+pipeline around computeAlignments) every rank holds the whole CSR and
+builds the same batches; each batch is sharded over the ranks (rank r
+aligns a contiguous 1/D of its pairs, the batch padded to a multiple of
+D with empty pairs) and gathered before it is compacted or collected, so
+every rank sees the single-device output (``parallel/mesh.py``).
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ import numpy as np
 import torch
 
 from shasta_tpu_torch.ops import align_kernel as AK
+from shasta_tpu_torch.parallel.context import current_mesh
 from shasta_tpu_torch.utils.perf import StageProf
 
 
@@ -350,17 +358,29 @@ _MAX_BATCH = 16384
 
 # Device-residency budgets (MiB), sized for an 80 GB H100: the LRU cache
 # of class matrices, and the queued phase-2 outputs above which the
-# runner compacts the oldest batches during dispatch.
+# runner compacts the oldest batches during dispatch. Ranks of a mesh
+# that share one card split both (``_budget_mb``).
 _MAT_MB_DEFAULT = 16384
 _DEVQ_MB_DEFAULT = 8192
 
 
-def _batch_plan(n: int, LA: int, LB: int, W: int):
+def _budget_mb(var: str, default: int) -> int:
+    """A device budget in MiB from ``var`` (else ``default``), divided by
+    the ranks of the current mesh that share this rank's device."""
+    mesh = current_mesh()
+    share = mesh.ranks_per_device if mesh is not None else 1
+    return int(os.environ.get(var, default)) // share
+
+
+def _batch_plan(n: int, LA: int, LB: int, W: int, mesh_d: int = 1):
     """(lo, hi) slices of n same-class pairs. Small shapes (phase-1
     band discovery) take larger batches, so that a launch carries
-    comparable work to the full-alignment shapes."""
+    comparable work to the full-alignment shapes. Under a mesh of
+    ``mesh_d`` ranks a full batch is a multiple of ``mesh_d`` (the
+    sharded call pads the last one)."""
     factor = max(1, (4 * 512 * 512 * 128) // max(1, LA * LB * W))
     max_b = min(_MAX_BATCH, 1024 * factor)
+    max_b = max(mesh_d, max_b - max_b % mesh_d)
     for lo in range(0, n, max_b):
         yield lo, min(lo + max_b, n)
 
@@ -390,7 +410,10 @@ class _DeviceCsr:
     length falls in one class, padded to the class length) is built by
     one gather the first time a batch of that class runs, and kept in
     an LRU cache under a byte budget (``SHASTA_TORCH_MAT_MB``; a quarter
-    of it for the phase-1 CSR, whose matrices are ~10x smaller). An
+    of it for the phase-1 CSR, whose matrices are ~10x smaller; split
+    between the ranks of a mesh that share the card). Under a mesh each
+    rank holds its own copy (the JAX package replicates the class
+    matrices over its mesh). An
     evicted class is rebuilt on demand. PyTorch's allocator is
     stream-ordered, so dropping a cached matrix that queued work still
     reads is safe: its memory is reused only by later work."""
@@ -416,7 +439,7 @@ class _DeviceCsr:
         self._members = {
             int(c): order[sorted_cls == c] for c in np.unique(sorted_cls)
         }
-        budget_mb = int(os.environ.get("SHASTA_TORCH_MAT_MB", _MAT_MB_DEFAULT))
+        budget_mb = _budget_mb("SHASTA_TORCH_MAT_MB", _MAT_MB_DEFAULT)
         if aux is not None:
             budget_mb //= 4
         self._mat_budget = budget_mb << 20
@@ -467,10 +490,16 @@ def _dispatch_csr(
     (kind, device payload, n): ``("band", (n, 3) [count, min_offset,
     max_offset])`` with ``band_fused`` (the CSR carries each downsampled
     marker's original ordinal as ``aux``), else ``("p2", (n, 16 + LA)
-    fused metrics + matches)``."""
+    fused metrics + matches)``. Under a mesh each batch is sharded over
+    its ranks and gathered (``sharded_band_take``, ``sharded_align_take``)."""
     dev = dev_csr.device
+    mesh = current_mesh()
+    kw = dict(
+        LA=LA, LB=LB, W=W, match=params.match_score,
+        mismatch=params.mismatch_score, gap=params.gap_score,
+    )
     pending = []
-    for lo, hi in _batch_plan(ids_a.shape[0], LA, LB, W):
+    for lo, hi in _batch_plan(ids_a.shape[0], LA, LB, W, mesh.size if mesh else 1):
         ia = ids_a[lo:hi]
         ib = ids_b[lo:hi]
 
@@ -482,13 +511,26 @@ def _dispatch_csr(
         a_len = put(dev_csr.lens[ia].astype(np.int32))
         b_len = put(dev_csr.lens[ib].astype(np.int32))
         bm = put(np.asarray(band_mins[lo:hi], np.int32))
+        if mesh is not None:
+            from shasta_tpu_torch.parallel import mesh as M
+
+            if band_fused:
+                band = M.sharded_band_take(
+                    mesh, dev_csr.matrix(LA), rowa, dev_csr.aux_matrix(LA),
+                    dev_csr.matrix(LB), rowb, dev_csr.aux_matrix(LB),
+                    a_len, b_len, bm, **kw,
+                )
+                pending.append(("band", band, hi - lo))
+            else:
+                fused = M.sharded_align_take(
+                    mesh, dev_csr.matrix(LA), rowa, dev_csr.matrix(LB), rowb,
+                    a_len, b_len, bm, **kw,
+                )
+                pending.append(("p2", fused, hi - lo))
+            continue
         a = _take_rows(dev_csr.matrix(LA), rowa, a_len, -1)
         b = _take_rows(dev_csr.matrix(LB), rowb, b_len, -2)
-        fused = AK.banded_align_pairs(
-            a, a_len, b, b_len, bm, LA=LA, LB=LB, W=W,
-            match=params.match_score, mismatch=params.mismatch_score,
-            gap=params.gap_score,
-        )
+        fused = AK.banded_align_pairs(a, a_len, b, b_len, bm, **kw)
         if band_fused:
             orda = _take_rows(dev_csr.aux_matrix(LA), rowa, a_len, 0)
             ordb = _take_rows(dev_csr.aux_matrix(LB), rowb, b_len, 0)
@@ -547,7 +589,8 @@ def _dispatch_grouped(
     """Group pairs into (LA, LB, W) classes, taken in sorted order, and
     launch every batch of each class. Each band is centred inside its
     class width. Returns [(pair indices, pending "p2" entry)], one per
-    batch."""
+    batch. Under a mesh each batch is sharded over its ranks and
+    gathered (``sharded_pallas_align``)."""
     order: Dict[Tuple[int, int, int], List[int]] = {}
     for i in range(len(a_rows)):
         key = (
@@ -557,25 +600,37 @@ def _dispatch_grouped(
         )
         order.setdefault(key, []).append(i)
 
+    mesh = current_mesh()
+
     def put(x):
-        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+        x = np.ascontiguousarray(x)
+        # Under a mesh the sharded call uploads each rank's share.
+        return x if mesh is not None else torch.from_numpy(x).to(device)
 
     dispatched = []
     for (LA, LB, W), idxs in sorted(order.items()):
         bm_all = np.asarray(
             [int(band_mins[i]) - (W - int(widths[i])) // 2 for i in idxs], np.int32
         )
-        for lo, hi in _batch_plan(len(idxs), LA, LB, W):
+        kw = dict(
+            LA=LA, LB=LB, W=W, match=params.match_score,
+            mismatch=params.mismatch_score, gap=params.gap_score,
+        )
+        for lo, hi in _batch_plan(len(idxs), LA, LB, W, mesh.size if mesh else 1):
             sel = idxs[lo:hi]
-            fused = AK.banded_align_pairs(
+            args = (
                 put(_pad_rows([a_rows[i] for i in sel], LA, -1)),
                 put(np.asarray([a_rows[i].shape[0] for i in sel], np.int32)),
                 put(_pad_rows([b_rows[i] for i in sel], LB, -2)),
                 put(np.asarray([b_rows[i].shape[0] for i in sel], np.int32)),
                 put(bm_all[lo:hi]),
-                LA=LA, LB=LB, W=W, match=params.match_score,
-                mismatch=params.mismatch_score, gap=params.gap_score,
             )
+            if mesh is not None:
+                from shasta_tpu_torch.parallel.mesh import sharded_pallas_align
+
+                fused = sharded_pallas_align(mesh, *args, **kw)
+            else:
+                fused = AK.banded_align_pairs(*args, **kw)
             dispatched.append((sel, ("p2", fused, hi - lo)))
     return dispatched
 
@@ -617,7 +672,8 @@ class _CsrStreamingRunner:
 
     With a ``keep_fn``, dispatched phase-2 batches whose device outputs
     exceed ``SHASTA_TORCH_DEVQ_MB`` are drained oldest first during
-    dispatch: their metrics come to the host, ``keep_fn(tags, met)``
+    dispatch (the budget split between the ranks of a mesh that share
+    the card): their metrics come to the host, ``keep_fn(tags, met)``
     selects the pairs that pass the acceptance filters, and only those
     pairs' matches are compacted on the device and fetched. A drained
     batch has no unfiltered output left, so :meth:`collect_flat` raises
@@ -634,9 +690,7 @@ class _CsrStreamingRunner:
         self.batches: List[List] = []
         self.keep_fn = keep_fn
         self._dev_bytes = 0
-        self._drain_budget = (
-            int(os.environ.get("SHASTA_TORCH_DEVQ_MB", _DEVQ_MB_DEFAULT)) << 20
-        )
+        self._drain_budget = _budget_mb("SHASTA_TORCH_DEVQ_MB", _DEVQ_MB_DEFAULT) << 20
         self._drain_ptr = 0
         self.drained = 0
 

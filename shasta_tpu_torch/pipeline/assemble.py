@@ -13,8 +13,13 @@ The alignment DP runs on the ``device`` (CUDA kernels, or their plain
 PyTorch version on the CPU): method 3's engine, method 4's grouped
 route and the palindrome pass. Methods 0 and 1, iterative assembly and
 every other stage are host code (numpy and the native library), as in
-the JAX package. Not ported yet: the mesh (ROADMAP.md, queue 1, item 3)
-is left out.
+the JAX package.
+
+With a ``mesh`` (``parallel/mesh.py``: one rank of a torch.distributed
+world, every rank running this pipeline) the collective-bearing stages
+run sharded over the ranks: the LowHash bucket exchange, the alignment
+batches and the union-find hooking rounds, with output identical to one
+device.
 """
 
 from __future__ import annotations
@@ -42,6 +47,18 @@ from shasta_tpu_torch.ops.align_kernel import resolve_device
 from shasta_tpu_torch.pipeline.config import AssemblyConfig
 from shasta_tpu_torch.utils.perf import PerformanceLog, malloc_trim
 from shasta_tpu_torch.consensus.caller import get_consensus_caller
+
+
+def _same_device(a, b) -> bool:
+    """Whether two devices are one ("cuda" names the current card)."""
+    if a.type != b.type:
+        return False
+    if a.type != "cuda":
+        return True
+    import torch
+
+    cur = torch.cuda.current_device()
+    return (cur if a.index is None else a.index) == (cur if b.index is None else b.index)
 
 
 def auto_min_coverage(
@@ -77,15 +94,32 @@ class Assembler:
 
     ``device`` is where the alignment engine runs: "cuda" by default
     (the CUDA kernels; raises when there is no card), or "cpu" (the
-    plain PyTorch version). The host stages are numpy either way."""
+    plain PyTorch version). The host stages are numpy either way.
+
+    ``mesh``: a :class:`~shasta_tpu_torch.parallel.mesh.Mesh`, under which
+    the collective-bearing stages (LowHash bucket all-to-all, alignment
+    batches, union-find hooking rounds) run sharded over its ranks (the
+    counterpart of the reference's thread pool, reference:
+    src/MultithreadedObject.hpp:33-99); output is identical to the
+    single-device path. The rank's device is then the mesh's, and a
+    ``device`` given beside it must be that one."""
 
     def __init__(
         self,
         run_dir: str,
         config: Optional[AssemblyConfig] = None,
-        device="cuda",
+        device=None,
+        mesh=None,
     ):
-        self.device = resolve_device(device)
+        if mesh is None:
+            self.device = resolve_device("cuda" if device is None else device)
+        else:
+            self.device = mesh.device
+            if device is not None and not _same_device(resolve_device(device), mesh.device):
+                raise ValueError(
+                    f"device={device!r} differs from the mesh's device {mesh.device}"
+                )
+        self.mesh = mesh
         self.run_dir = run_dir
         os.makedirs(run_dir, exist_ok=True)
         self.store = RunStore(run_dir)
@@ -316,6 +350,17 @@ class Assembler:
                 self.candidates = LH.all_pairs_candidates(
                     self.reads.read_count, self.reads.is_palindromic
                 )
+            elif self.mesh is not None and cm.version == 0:
+                # (A 1-rank mesh runs the same sharded code, so a single
+                # card's mesh run exercises this path.) LowHash buckets
+                # exchanged via all-to-all (reference analog: the
+                # shared-memory bucket fill, src/LowHash0.cpp:169-182).
+                # Produces the identical candidate set as the host path.
+                from shasta_tpu_torch.parallel.mesh import sharded_find_candidates
+
+                self.candidates = sharded_find_candidates(
+                    self.mesh, self.markers, params, self.reads.is_palindromic
+                )
             elif cm.version == 1:
                 # LowHash1: records common-feature ordinals per
                 # candidate (reference: AssemblerLowHash.cpp:137).
@@ -402,8 +447,10 @@ class Assembler:
             self.feedback.extend(fb_msgs)
 
     def compute_alignments(self) -> None:
+        from shasta_tpu_torch.parallel.context import use_mesh
+
         ca = self.config.align
-        with self.log.stage("computeAlignments"):
+        with self.log.stage("computeAlignments"), use_mesh(self.mesh):
             params = AlignParams(
                 match_score=ca.match_score,
                 mismatch_score=ca.mismatch_score,
@@ -590,7 +637,9 @@ class Assembler:
             u = v = np.zeros(0, np.int64)
             # The duplicate-marker cleanup pass (rare path) still
             # consumes explicit pairs; everyone else streams.
-            need_uv = cm.allow_duplicate_markers and cm.cleanup_duplicate_markers
+            need_uv = self.mesh is not None or (
+                cm.allow_duplicate_markers and cm.cleanup_duplicate_markers
+            )
             if not need_uv:
                 # Stream unites straight into the native DSU — no
                 # materialized pair arrays (the run's largest transient
@@ -617,6 +666,16 @@ class Assembler:
                 # (iterative assembly re-scores them, so it keeps the
                 # store; stage-store reloads still work).
                 self.release_alignments()
+            if self.mesh is not None:
+                # Union-find min-hooking rounds run edge-parallel over
+                # the mesh (reference analog: the lock-free CAS DSU,
+                # src/dset64-gccAtomic.hpp); the wrapper verifies
+                # convergence so labels match the host path exactly.
+                from shasta_tpu_torch.parallel.mesh import sharded_union_find_labels
+
+                labels = sharded_union_find_labels(
+                    self.mesh, self.markers.total_count, u, v
+                )
             min_cov = cm.min_coverage
             if min_cov == 0:
                 # Histogram of disjoint-set sizes for auto selection.
@@ -1210,9 +1269,9 @@ class Assembler:
                 "<html><body><h1>shasta_tpu_torch run</h1><ul>"
                 '<li><a href="AssemblySummary.html">Assembly summary</a></li>'
                 '<li><a href="AssemblySummary.json">Assembly summary (JSON)</a></li>'
-                "</ul><p>Interactive exploration (the explore command) is "
-                "not ported to shasta_tpu_torch yet (ROADMAP.md, queue 1, "
-                "item 4).</p></body></html>"
+                "</ul><p>Run <code>python -m shasta_tpu_torch --command explore "
+                "--assemblyDirectory .</code> for interactive exploration."
+                "</p></body></html>"
             )
 
 
@@ -1224,17 +1283,22 @@ def run_assembly(
     input_files: List[str],
     run_dir: str,
     config: Optional[AssemblyConfig] = None,
-    device="cuda",
+    device=None,
+    mesh=None,
 ) -> Dict:
     """The full pipeline (reference call sequence: srcMain/main.cpp:516-830,
     then mode0Assembly :845-1045 with its iterative rounds :851-906, or
     mode2Assembly :1049, or mode3Assembly :1116).
 
-    ``device``: where the alignment DP runs, "cuda" (the CUDA kernels;
-    raises without a card) or "cpu" (their plain PyTorch version). The
-    output is identical on either."""
+    ``device``: where the alignment DP runs, "cuda" (the default: the
+    CUDA kernels; raises without a card) or "cpu" (their plain PyTorch
+    version). The output is identical on either.
+
+    ``mesh``: optional :class:`~shasta_tpu_torch.parallel.mesh.Mesh`; when
+    provided, the hot stages execute sharded over its ranks with
+    identical output (the device is the mesh's)."""
     t0 = time.monotonic()
-    a = Assembler(run_dir, config, device=device)
+    a = Assembler(run_dir, config, device=device, mesh=mesh)
     from shasta_tpu_torch.utils.perf import Tee
 
     with Tee(os.path.join(run_dir, "stdout.log")):

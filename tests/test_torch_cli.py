@@ -3,8 +3,9 @@ package's, and the commands and options it refuses.
 
 The list commands print what the JAX CLI prints. ``assemble`` runs with
 ``--device cpu`` on a small seeded input, under modes 2 and 3, iterative
-assembly and alignment methods 0, 1 and 4 too; ``explore``, which is not
-ported, raises ``NotImplementedError`` naming its ROADMAP.md item.
+assembly and alignment methods 0, 1 and 4 too; ``explore`` refuses what
+the JAX CLI refuses before it serves anything (its pages are held to the
+JAX explorer's in test_torch_explore.py).
 """
 
 import json
@@ -146,9 +147,20 @@ def test_ported_options_run_as_the_reference(small_input, tmp_path, extra, capsy
     ).read_bytes()
 
 
-def test_explore_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1, item 4"):
-        main(["--command", "explore", "--assemblyDirectory", "."])
+def test_explore_raises(tmp_path):
+    """explore raises before it serves: on a PAF file that is not there,
+    on an --exploreAccess the reference does not know (as the JAX CLI
+    does), and on --device cuda without a card (nothing falls back)."""
+    base = ["--command", "explore", "--assemblyDirectory", str(tmp_path)]
+    with pytest.raises(SystemExit, match="not found"):
+        main(base + ["--alignmentsPafFile", str(tmp_path / "none.paf")])
+    with pytest.raises(SystemExit, match="not found"):
+        ref_main(base + ["--alignmentsPafFile", str(tmp_path / "none.paf")])
+    with pytest.raises(ValueError, match="exploreAccess"):
+        main(base + ["--exploreAccess", "everyone", "--device", "cpu"])
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main(base + ["--device", "cuda"])
 
 
 def test_device_cuda_without_card_raises(small_input, tmp_path):

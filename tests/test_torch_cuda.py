@@ -250,3 +250,48 @@ def test_mode2_golden_run_on_card(card, tmp_path):
             with open(os.path.join(run_dir, key[5:]), "rb") as f:
                 got[key] = hashlib.sha256(f.read()).hexdigest()
     assert got == pinned
+
+
+@pytest.mark.cuda
+def test_mesh_functions_one_rank_nccl_match_plain(card):
+    """Every sharded function of parallel/mesh.py on a one-rank NCCL world
+    on the card equals the same function on a one-rank gloo world on the
+    CPU (the plain version), on the mesh tests' inputs
+    (tests/torch_ranks.py); the card's rank launched both kernels."""
+    from shasta_tpu_torch.parallel.distributed import spawn
+    from tests import torch_ranks as TR
+
+    inp = TR.mesh_inputs()
+    (gpu,) = spawn(TR.mesh_functions, 1, device="cuda", args=(inp,), timeout=600)
+    (cpu,) = spawn(TR.mesh_functions, 1, device="cpu", args=(inp,), timeout=600)
+    for key in ("lowhash", "fwd", "full_step"):
+        assert all(np.array_equal(x, y) for x, y in zip(gpu[key], cpu[key])), key
+    for key in ("ftb", "pallas", "take", "band", "uf_labels"):
+        assert np.array_equal(gpu[key], cpu[key]), key
+    for r in gpu["uf"]:
+        assert np.array_equal(gpu["uf"][r], cpu["uf"][r]), r
+    for f in ("read_id0", "read_id1", "same_strand", "frequency"):
+        assert np.array_equal(getattr(gpu["candidates"], f), getattr(cpu["candidates"], f)), f
+    assert gpu["launches"]["banded_fwd"] > 0 and gpu["launches"]["banded_tb"] > 0
+    assert cpu["launches"] == {k: 0 for k in cpu["launches"]}
+
+
+@pytest.mark.cuda
+def test_two_gloo_ranks_share_the_card(card, tmp_path):
+    """run_assembly_distributed on two gloo ranks that share the card, the
+    kernels on the card: every golden value of the mode-0 golden input
+    holds in both ranks' run directories."""
+    from shasta_tpu_torch.parallel.distributed import spawn
+    from tests import torch_ranks as TR
+
+    g = synth.random_genome(25000, seed=4242)
+    fa = str(tmp_path / "r.fasta")
+    synth.write_fasta(fa, synth.sample_reads(g, 130, 3000, seed=4243, both_strands=True))
+    run_dir = str(tmp_path / "run")
+    outs = spawn(
+        TR.distributed_run, 2, device="cuda", backend="gloo",
+        args=([fa], run_dir, 0), timeout=600,
+    )
+    assert outs[0][1]["alignmentCount"] == 1992 and outs[1][1] is None
+    assert TR.golden_mismatches(run_dir, 0) == []
+    assert TR.golden_mismatches(str(tmp_path / "run" / ".process1"), 0) == []

@@ -39,6 +39,20 @@ assert rc == 0, rc
 summary = json.loads(out.getvalue())
 assert summary["alignmentCount"] == 1992, summary["alignmentCount"]
 assert summary["assembledSegmentCount"] == 1, summary["assembledSegmentCount"]
+# The explorer's pages over the run, its on-demand alignment included.
+from shasta_tpu_torch.http.explore import Explorer, _routes
+routes = _routes(Explorer(os.path.join(d, "run"), device="cpu"))
+assert "shasta_tpu assembly" in routes["/"]({})
+routes["/alignment"]({"readId0": ["0"], "readId1": ["1"]})
+# The run's LowHash again on a one-rank mesh (a gloo world on the CPU).
+from shasta_tpu_torch.data.markers import MarkerStore
+from shasta_tpu_torch.data.store import RunStore
+from shasta_tpu_torch.ops.lowhash import LowHashParams
+from shasta_tpu_torch.parallel.mesh import make_mesh, sharded_find_candidates
+markers = MarkerStore.from_arrays(RunStore(os.path.join(d, "run"), create=False).load_stage("Markers"))
+pairs = sharded_find_candidates(make_mesh(1, device="cpu"), markers,
+                                LowHashParams(m=4, hash_fraction=0.05, iteration_count=6, max_bucket_size=60))
+assert pairs.count == 2200, pairs.count
 # Mode-2, mode-3 and alignment-method-4 runs of the same input.
 for extra in (["--Assembly.mode", "2"], ["--Assembly.mode", "3"],
               ["--Align.alignMethod", "4"]):
@@ -66,8 +80,9 @@ print("LEAKED", bad)
 def test_package_runs_without_jax_or_reference(tmp_path):
     """A fresh interpreter imports every module of the port, the CLI
     included, and runs the whole assemble command on the golden input
-    on the CPU, under modes 0, 2 and 3 and alignment method 4; neither jax
-    nor shasta_tpu is loaded."""
+    on the CPU, under modes 0, 2 and 3 and alignment method 4, renders the
+    explorer's pages over the mode-0 run and runs its LowHash again on a
+    one-rank mesh; neither jax nor shasta_tpu is loaded."""
     env = dict(os.environ, OMP_NUM_THREADS="1")
     env.pop("PYTHONPATH", None)
     out = subprocess.run(
