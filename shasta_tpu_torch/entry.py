@@ -237,16 +237,14 @@ def dryrun_rank(mesh, n_devices: int) -> str:
     )
 
 
-def dryrun_multichip(n_devices: int, device="cuda", backend=None, timeout: float = 900.0) -> str:
+def dryrun_multichip(n_devices: int, device="cuda", timeout: float = 900.0) -> str:
     """Spawn ``n_devices`` ranks (``parallel.distributed.spawn``: NCCL on
-    cards by default, gloo on the CPU; ranks that share a card need
-    ``backend="gloo"``), run :func:`dryrun_rank` on each, print rank 0's
-    line and return it. Any rank's failure raises."""
+    cards, gloo on the CPU), run :func:`dryrun_rank` on each, print rank
+    0's line and return it. Any rank's failure raises."""
     from shasta_tpu_torch.parallel.distributed import spawn
 
     lines = spawn(
-        dryrun_rank, n_devices, device=device, backend=backend,
-        args=(n_devices,), timeout=timeout,
+        dryrun_rank, n_devices, device=device, args=(n_devices,), timeout=timeout,
     )
     _check(len(set(lines)) == 1, f"ranks disagree: {lines}")
     print(lines[0], flush=True)

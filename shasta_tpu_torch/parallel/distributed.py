@@ -33,7 +33,9 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from shasta_tpu_torch.parallel.mesh import Mesh, gather_host, make_mesh, rank_device
+from shasta_tpu_torch.parallel.mesh import (
+    Mesh, gather_host, make_mesh, rank_device, rank_share,
+)
 
 
 def _free_port() -> int:
@@ -81,17 +83,16 @@ def is_coordinator() -> bool:
     return _world()[1] == 0
 
 
-def global_mesh(axis: str = "pairs", device=None) -> Mesh:
+def global_mesh(device=None) -> Mesh:
     """The 1-D mesh over every rank of the world."""
-    return make_mesh(axis=axis, device=device)
+    return make_mesh(device=device)
 
 
 def process_local_slice(n: int) -> slice:
     """The contiguous [start, stop) shard of ``n`` items this rank owns
-    (reads dealt out contiguously so read ids stay globally dense)."""
-    p, i = _world()
-    per = -(-n // p)
-    return slice(min(i * per, n), min((i + 1) * per, n))
+    (reads dealt out contiguously so read ids stay globally dense), by the
+    mesh's one sharding rule (``parallel.mesh.rank_share``)."""
+    return rank_share(n, *_world())
 
 
 def shard_input_files(input_files: Sequence[str]) -> List[str]:
@@ -120,9 +121,8 @@ def allgather_to_hosts(arr: np.ndarray) -> np.ndarray:
     return gather_host(np.asarray(arr), _comm_device())
 
 
-def barrier(name: str = "shasta_tpu_torch") -> None:
-    """Cross-rank sync point (stage fences between pipeline stages).
-    ``name`` labels the call site."""
+def barrier() -> None:
+    """Cross-rank sync point (stage fences between pipeline stages)."""
     if _world()[0] == 1:
         return
     if str(dist.get_backend()) == "nccl":
@@ -150,12 +150,12 @@ def run_assembly_distributed(
     from shasta_tpu_torch.pipeline.assemble import run_assembly
 
     initialize(backend=backend, device=device)
-    barrier("assembly-start")
+    barrier()
     mesh = global_mesh(device=device)
     if not is_coordinator():
         run_dir = os.path.join(run_dir, f".process{mesh.rank}")
     summary = run_assembly(list(input_files), run_dir, config, mesh=mesh)
-    barrier("assembly-complete")
+    barrier()
     return summary if is_coordinator() else None
 
 

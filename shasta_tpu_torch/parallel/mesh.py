@@ -46,33 +46,70 @@ from shasta_tpu_torch.ops import align_kernel as AK
 _M32 = 0xFFFFFFFF
 
 
+def share_rows(n: int, size: int) -> int:
+    """Rows per rank when ``n`` items are dealt out over ``size`` ranks:
+    ceil(n / size). With :func:`rank_share`, the port's one sharding
+    rule."""
+    return -(-n // size)
+
+
+def rank_share(n: int, size: int, rank: int) -> slice:
+    """Rank ``rank``'s contiguous [start, stop) of ``n`` items dealt out
+    :func:`share_rows` to a rank (the last shares may be short or
+    empty)."""
+    per = share_rows(n, size)
+    return slice(min(rank * per, n), min((rank + 1) * per, n))
+
+
+def device_key(device: torch.device) -> str:
+    """What names a device across the ranks of a host: a card's UUID
+    (launchers that give each rank its own ``CUDA_VISIBLE_DEVICES`` show
+    every rank its card as ``cuda:0``), else the device's name."""
+    if device.type == "cuda":
+        return str(torch.cuda.get_device_properties(device).uuid)
+    return str(device)
+
+
 class Mesh:
-    """One rank's view of a 1-D device mesh (axis ``"pairs"``): the
-    process group, this rank and the world size, the backend, and this
-    rank's ``torch.device``.
+    """One rank's view of a 1-D device mesh: the process group, this rank
+    and the world size, the backend, and this rank's ``torch.device``.
 
     ``ranks_per_device`` counts the ranks of the world on this rank's
-    device (on this host): ranks that share a card split its memory
-    budgets by it. ``seconds`` and ``calls`` accumulate the host wall
-    time and count of each kind of collective (``all_to_all``,
-    ``all_reduce_min``, ``all_reduce_sum``, ``all_gather``); on a card
-    the timed span starts and ends with a device synchronize, so it holds
-    the exchange alone (with its host copies under gloo), not the
-    kernels queued before it."""
+    device (the same host and :func:`device_key`): ranks that share a
+    card split its memory budgets by it. ``seconds`` and ``calls`` hold
+    the time and count of each kind of collective (``all_to_all``,
+    ``all_reduce_min``, ``all_reduce_sum``, ``all_gather``). Under gloo a
+    span is host wall time from a device synchronize (the payload's copy
+    to the host waits for the queued kernels anyway), so it holds the
+    exchange alone with its host copies. Under NCCL the host does not
+    wait: a span is a pair of CUDA events on the current stream, read
+    (with one synchronize) when ``seconds`` is."""
 
-    def __init__(self, group, backend: str, device: torch.device, axis: str = "pairs"):
+    def __init__(self, group, backend: str, device: torch.device):
         self.group = group
         self.rank = dist.get_rank(group)
         self.size = dist.get_world_size(group)
         self.backend = backend
         self.device = device
-        self.axis_names = (axis,)
         self.comm_device = device if backend == "nccl" else torch.device("cpu")
-        self.seconds = {}
+        self._host_s = {}
+        self._events = {}
         self.calls = {}
         peers = [None] * self.size
-        dist.all_gather_object(peers, (socket.gethostname(), str(device)), group=group)
+        dist.all_gather_object(peers, (socket.gethostname(), device_key(device)), group=group)
         self.ranks_per_device = peers.count(peers[self.rank])
+
+    @property
+    def seconds(self) -> dict:
+        """Seconds spent in each kind of collective so far."""
+        out = dict(self._host_s)
+        if self._events:
+            torch.cuda.synchronize(self.device)
+            for kind, spans in self._events.items():
+                out[kind] = out.get(kind, 0.0) + sum(
+                    e0.elapsed_time(e1) for e0, e1 in spans
+                ) / 1e3
+        return out
 
     def __repr__(self) -> str:
         return (
@@ -83,14 +120,22 @@ class Mesh:
     # ----- collectives (every rank calls each one at the same point) -----
 
     def _timed(self, kind: str, fn):
+        self.calls[kind] = self.calls.get(kind, 0) + 1
+        if self.backend == "nccl":
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = fn()
+            e1.record()
+            self._events.setdefault(kind, []).append((e0, e1))
+            return out
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         t0 = time.perf_counter()
         out = fn()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        self.seconds[kind] = self.seconds.get(kind, 0.0) + time.perf_counter() - t0
-        self.calls[kind] = self.calls.get(kind, 0) + 1
+        self._host_s[kind] = self._host_s.get(kind, 0.0) + time.perf_counter() - t0
         return out
 
     def all_reduce(self, t: torch.Tensor, op: str) -> torch.Tensor:
@@ -133,10 +178,8 @@ class Mesh:
         return self._timed("all_to_all", run)
 
     def share(self, n: int) -> slice:
-        """This rank's contiguous [start, stop) of ``n`` items dealt out
-        ceil(n / D) to a rank."""
-        per = -(-n // self.size)
-        return slice(min(self.rank * per, n), min((self.rank + 1) * per, n))
+        """This rank's :func:`rank_share` of ``n`` items."""
+        return rank_share(n, self.size, self.rank)
 
     def gather_rows(self, local: torch.Tensor, n: int) -> torch.Tensor:
         """The ``n`` rows that :meth:`share` dealt out, brought back on
@@ -144,8 +187,7 @@ class Mesh:
         ceil(n / D) rows for the gather; every share before the last
         non-empty one is full, so the first ``n`` gathered rows are the
         items in order."""
-        per = -(-n // self.size)
-        pad = per - local.shape[0]
+        pad = share_rows(n, self.size) - local.shape[0]
         if pad:
             local = torch.cat([local, local.new_zeros((pad,) + tuple(local.shape[1:]))])
         return self.all_gather(local)[:n]
@@ -195,7 +237,7 @@ def rank_device(device=None) -> torch.device:
     return dev
 
 
-def make_mesh(n_devices: Optional[int] = None, axis: str = "pairs", device=None) -> Mesh:
+def make_mesh(n_devices: Optional[int] = None, device=None) -> Mesh:
     """The mesh over the initialized ``torch.distributed`` world, one rank
     per device. With no world up, first starts a one-rank one (gloo for
     ``device="cpu"``, NCCL for a card; :func:`distributed.initialize`).
@@ -222,7 +264,7 @@ def make_mesh(n_devices: Optional[int] = None, axis: str = "pairs", device=None)
         raise ValueError(f"an NCCL mesh runs on CUDA devices, not {dev}")
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
-    return Mesh(dist.group.WORLD, backend, dev, axis)
+    return Mesh(dist.group.WORLD, backend, dev)
 
 
 def fetch(x) -> np.ndarray:
@@ -257,13 +299,12 @@ def put_replicated(x, mesh: Mesh) -> torch.Tensor:
 
 
 def _my_rows(mesh: Mesh, x, fill: int) -> torch.Tensor:
-    """This rank's rows of a batch padded to a multiple of D with
-    ``fill`` rows (empty pairs): rows [r B/D, (r + 1) B/D) of the padded
-    batch, on this rank's device."""
+    """This rank's :meth:`Mesh.share` of a batch's rows, padded with
+    ``fill`` rows (empty pairs) to :func:`share_rows`, on this rank's
+    device: the batch padded to a multiple of D, dealt out evenly."""
     B = x.shape[0]
-    per = -(-B // mesh.size)
-    lo, hi = min(mesh.rank * per, B), min((mesh.rank + 1) * per, B)
-    part = torch.as_tensor(x[lo:hi]).to(mesh.device)
+    per = share_rows(B, mesh.size)
+    part = torch.as_tensor(x[mesh.share(B)]).to(mesh.device)
     if part.shape[0] < per:
         pad = torch.full(
             (per - part.shape[0],) + tuple(part.shape[1:]), fill,

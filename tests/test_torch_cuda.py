@@ -274,6 +274,10 @@ def test_mesh_functions_one_rank_nccl_match_plain(card):
         assert np.array_equal(getattr(gpu["candidates"], f), getattr(cpu["candidates"], f)), f
     assert gpu["launches"]["banded_fwd"] > 0 and gpu["launches"]["banded_tb"] > 0
     assert cpu["launches"] == {k: 0 for k in cpu["launches"]}
+    # NCCL spans are CUDA events: one per collective call, read at the end.
+    assert set(gpu["seconds"]) == set(gpu["calls"])
+    assert all(s > 0 for s in gpu["seconds"].values()), gpu["seconds"]
+    assert gpu["ranks_per_device"] == 1
 
 
 @pytest.mark.cuda

@@ -92,7 +92,16 @@ def test_initialize_and_helpers(one_rank_world):
     assert D.shard_input_files(["a", "b"]) == ["a", "b"]
     arr = np.arange(12).reshape(3, 4)
     assert np.array_equal(D.allgather_to_hosts(arr), arr)
-    D.barrier("test")
+    D.barrier()
+
+
+def test_ranks_per_device_counts_ranks_on_one_card(monkeypatch):
+    """Two ranks share a device only where their device keys agree: two
+    CPU ranks share the host, ranks that report different card UUIDs
+    count one rank a card, ranks that report one UUID count two."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    outs = D.spawn(TR.peer_counts, 2, device="cpu", timeout=120)
+    assert outs == [[2, 1, 2], [2, 1, 2]]
 
 
 def one_rank_mesh_run(fasta, run_dir, mode, single_dir=None):

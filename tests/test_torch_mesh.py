@@ -143,6 +143,7 @@ def test_every_rank_has_the_full_result(port):
             assert np.array_equal(o[key], outs[0][key]), key
         assert o["candidates"].count == outs[0]["candidates"].count
     calls = outs[0]["calls"]
+    assert set(outs[0]["seconds"]) == set(calls), outs[0]["seconds"]
     assert calls["all_to_all"] == TR.LOWHASH["iteration_count"], calls
     assert calls["all_reduce_min"] == 2 + 24 + 16 + 8, calls
 

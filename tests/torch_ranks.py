@@ -199,6 +199,8 @@ def mesh_functions(mesh, inp):
         M.full_step(mesh, *dry, n_markers, W=128, log2_buckets=8)
     )
     out["calls"] = dict(mesh.calls)
+    out["seconds"] = mesh.seconds
+    out["ranks_per_device"] = mesh.ranks_per_device
     from shasta_tpu_torch.ops import align_kernel as AK
 
     out["launches"] = dict(AK.LAUNCHES)
@@ -240,3 +242,19 @@ def two_files(mesh, fastas, run_dir):
     ``run_assembly_distributed`` on both files."""
     dealt = dealt_reads(mesh, fastas)
     return dealt, distributed_run(mesh, fastas, run_dir, 0)
+
+
+def peer_counts(mesh):
+    """``ranks_per_device`` of this world's mesh, then of meshes built
+    while every rank reports a card of its own UUID, and while all report
+    one UUID (``device_key`` names a card by its UUID, whatever index
+    ``CUDA_VISIBLE_DEVICES`` gives it)."""
+    from unittest import mock
+
+    from shasta_tpu_torch.parallel import mesh as M
+
+    out = [mesh.ranks_per_device]
+    for key in (lambda dev: f"card-{mesh.rank}", lambda dev: "card-0"):
+        with mock.patch.object(M, "device_key", key):
+            out.append(M.Mesh(mesh.group, mesh.backend, mesh.device).ranks_per_device)
+    return out
