@@ -102,17 +102,39 @@ no result line):
    mode-3 pages answer 200, and the on-demand alignment of a stored
    alignment's reads launches the kernels.
 
+11. The stage drivers (shasta_tpu_torch/scripts), each run in this
+   process through its main(argv), launch counts from 0 just before it:
+   (a) on two copies of phase 3's golden run, one on the card and one
+   with --device cpu, ComputeAlignments.py (on the card also under
+   SHASTA_TORCH_WAVES=2), FlagPalindromicReads.py,
+   FindAlignmentCandidatesLowHash0.py, AlignOrientedReads.py and
+   AlignOrientedReads4.py on the first stored alignment's reads,
+   Mode0Assembly.py and Test.py: the stages they rewrite keep the pinned
+   hashes, the card's output equals the CPU's, each card run of a
+   DP-running driver launched the forward and traceback kernels (the
+   waves kernel under waves 2 only), and Assembly.fasta and Assembly.gfa
+   are byte-equal to phase 3's; FlagPalindromicReads.py then runs again
+   as a file in a shell, on the card by default; (b) ComputeAlignments.py
+   and FlagPalindromicReads.py on the card on phase 4's 5 Mb run: the
+   Alignments and Reads hashes equal phase 4's, ComputeAlignments.py's
+   launches by (LA, W) class (LA >= 8192 among them; the palindrome
+   pass's host prefilter leaves FlagPalindromicReads.py no read to align
+   there, as in phase 4's run), the kernels' device time and each
+   driver's wall seconds.
+
 The spot checks of phases 4, 6 and 8 (128 kept pairs re-aligned with
 the plain version on the card, from the run directory's stored stages)
 run in one spawned worker process beside the phases that follow; the
-script collects them after phase 10 and fails on any.
+script collects them after phase 10 and fails on any. Phase 11 runs
+after that, since it rewrites stages of those runs.
 
 The grades record accuracy and gate nothing: no floor has been measured.
 
 Each phase's seconds print. The line before the last is
 {"kernels": [...]}, each kernel's launches summed over the paths that
-ran it (``paths``: the runs of phases 4 to 10, the mesh's ranks and
-the explorer included); the last line is {"ok": true, "device": {...}}.
+ran it (``paths``: the runs of phases 4 to 11, the mesh's ranks, the
+explorer and the stage drivers included); the last line is {"ok": true,
+"device": {...}}.
 """
 
 from __future__ import annotations
@@ -1121,8 +1143,9 @@ def phase_real_size(work, sm_clock_mhz):
         "compute_alignments_s": secs, "launches": rerun_launches,
         "shapes": kernel_classes(rerun_trace, sm_clock_mhz, "waves2"), "dir": rerun_dir,
     }
+    run_hashes = stage_hashes(run_dir)
     h = stage_hashes(rerun_dir)["Alignments"]
-    if h != stage_hashes(run_dir)["Alignments"]:
+    if h != run_hashes["Alignments"]:
         raise AssertionError(f"Alignments hash differs in the waves-2 rerun: {h[:12]}")
     waves_launches = reruns["waves2"]["launches"]
     waves_shapes = reruns["waves2"]["shapes"]
@@ -1159,7 +1182,7 @@ def phase_real_size(work, sm_clock_mhz):
         "summary": {k: v for k, v in summary.items() if not isinstance(v, (dict, list))},
         "shapes": shapes, "fwd_ms": fwd_ms, "tb_ms": tb_ms, "nominal_cells": nominal,
         "processed_cells": real_cells,
-        "reruns": reruns, "by_class": by_class, "grade": graded,
+        "reruns": reruns, "by_class": by_class, "grade": graded, "hashes": run_hashes,
     }
 
 # ---------------------------------------------------------------------------
@@ -2255,6 +2278,160 @@ def phase_explorer(work):
 
 
 # ---------------------------------------------------------------------------
+# Phase 11: the stage drivers
+# ---------------------------------------------------------------------------
+
+SCRIPTS = os.path.join(ROOT, "shasta_tpu_torch", "scripts")
+
+
+def run_script(name, argv, waves=None):
+    """shasta_tpu_torch/scripts/<name>.py's main(argv) in this process, its
+    launch counts from 0 just before and read just after: (exit code,
+    stdout, launches, launch trace, wall seconds)."""
+    from shasta_tpu_torch.ops import align_kernel as K
+
+    if SCRIPTS not in sys.path:
+        sys.path.insert(0, SCRIPTS)
+    import _common
+
+    main = _common.load(name).main
+    out = io.StringIO()
+    reset_launches()
+    K.TRACE = []
+    t0 = time.perf_counter()
+    with waves_env(waves), contextlib.redirect_stdout(out):
+        rc = main(argv)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    trace, K.TRACE = K.TRACE, None
+    return rc, out.getvalue(), dict(K.LAUNCHES), trace, secs
+
+
+def phase_scripts_golden(work):
+    """Phase 11a: the kernel-reaching drivers on two copies of phase 3's
+    golden run, on the card and with --device cpu."""
+    import shutil
+
+    from shasta_tpu_torch.data.store import RunStore
+
+    src = os.path.join(work, "golden-cuda")
+    with open(GOLDEN) as f:
+        pinned = json.load(f)
+    al = RunStore(src, create=False).load_stage("Alignments")
+    pair = [str(int(al["read_id0"][0])), "0", str(int(al["read_id1"][0])),
+            "0" if al["same_strand"][0] else "1"]
+    # (driver, arguments after the run directory, SHASTA_TORCH_WAVES, the
+    # stages it rewrites, whether it runs the DP); Test.py opens no run.
+    steps = [
+        ("ComputeAlignments", [], None, ["Alignments"], True),
+        ("ComputeAlignments", [], "2", ["Alignments"], True),
+        ("FlagPalindromicReads", [], None, ["Reads"], True),
+        ("FindAlignmentCandidatesLowHash0", [], None, ["AlignmentCandidates"], False),
+        ("AlignOrientedReads", pair, None, [], True),
+        ("AlignOrientedReads4", pair, None, [], True),
+        ("Mode0Assembly", [], None, [], False),
+        ("Test", None, None, [], False),
+    ]
+    runs = {}
+    for device in ("cuda", "cpu"):
+        run_dir = os.path.join(work, f"scripts-golden-{device}")
+        shutil.copytree(src, run_dir)
+        for name, extra, waves, rewrites, dp in steps:
+            if device == "cpu" and waves:
+                continue
+            label = f"{name}{' SHASTA_TORCH_WAVES=' + waves if waves else ''} --device {device}"
+            argv = ([] if extra is None else [run_dir] + extra) + ["--device", device]
+            rc, out, launches, _trace, secs = run_script(name, argv, waves)
+            if rc != 0:
+                raise AssertionError(f"scripts golden: {label} returned {rc}")
+            hashes = stage_hashes(run_dir)
+            bad = [st for st in rewrites if hashes[st] != pinned[st]]
+            if bad:
+                raise AssertionError(f"scripts golden: {label}: stage hashes differ: {bad}")
+            if device == "cuda" and dp and not (launches["banded_fwd"] + launches[
+                    "banded_fwd_waves"] and launches["banded_tb"]):
+                raise AssertionError(f"scripts golden: {label} launched {launches}")
+            if (launches["banded_fwd_waves"] > 0) != bool(waves):
+                raise AssertionError(f"scripts golden: {label} launched {launches}")
+            runs.setdefault(device, []).append({
+                "script": name, "waves": waves, "stdout": out.replace(run_dir, "<run>"),
+                "launches": launches, "seconds": secs,
+            })
+            log(f"  [scripts golden] {label}: {secs:.2f}s, launches {launches}, "
+                f"{out.strip().splitlines()[0] if out.strip() else ''}")
+        runs[device + "-files"] = {}
+        for name in OUTPUTS:
+            with open(os.path.join(run_dir, name), "rb") as f:
+                runs[device + "-files"][name] = f.read()
+    cuda = [r for r in runs["cuda"] if not r["waves"]]
+    if [r["stdout"] for r in cuda] != [r["stdout"] for r in runs["cpu"]]:
+        raise AssertionError("scripts golden: the card's output differs from the CPU's")
+    if runs["cuda"][1]["stdout"] != runs["cpu"][0]["stdout"]:
+        raise AssertionError("scripts golden: ComputeAlignments under waves 2 printed otherwise")
+    phase3 = {}
+    for name in OUTPUTS:
+        with open(os.path.join(src, name), "rb") as f:
+            phase3[name] = f.read()
+    if not runs["cuda-files"] == runs["cpu-files"] == phase3:
+        raise AssertionError("scripts golden: Mode0Assembly.py's FASTA/GFA differ from phase 3's")
+
+    # The driver as a user runs it: a file in a shell, on the card by default.
+    run_dir = os.path.join(work, "scripts-golden-cuda")
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, os.path.join(SCRIPTS, "FlagPalindromicReads.py"), run_dir],
+        cwd=ROOT, capture_output=True, text=True, timeout=300,
+    )
+    secs = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise AssertionError(f"FlagPalindromicReads.py in a shell: {r.stderr[-2000:]}")
+    if r.stdout != runs["cuda"][2]["stdout"] or stage_hashes(run_dir)["Reads"] != pinned["Reads"]:
+        raise AssertionError(f"FlagPalindromicReads.py in a shell printed {r.stdout!r}")
+    log(f"  [scripts golden] python3 shasta_tpu_torch/scripts/FlagPalindromicReads.py: "
+        f"{secs:.2f}s, {r.stdout.strip()}")
+    launches = {k: sum(x["launches"][k] for x in runs["cuda"]) for k in runs["cuda"][0]["launches"]}
+    log(
+        "scripts golden: the re-run stages' hashes equal the pinned values on the card "
+        "and the CPU; the card's output equals the CPU's; Mode0Assembly.py's FASTA and "
+        f"GFA byte-equal to phase 3's; card launches {launches}"
+    )
+    return {"launches": launches, "cuda": runs["cuda"], "cpu": runs["cpu"],
+            "shell_s": secs}
+
+
+def phase_scripts_real_size(real, sm_clock_mhz):
+    """Phase 11b: ComputeAlignments.py and FlagPalindromicReads.py on the
+    card on phase 4's 5 Mb run directory (Nanopore-May2022 verbatim, as
+    its shasta.conf holds it)."""
+    run_dir = real["dir"]
+    out = {}
+    total = {"banded_fwd": 0, "banded_tb": 0, "banded_fwd_waves": 0}
+    for name, stage in (("ComputeAlignments", "Alignments"), ("FlagPalindromicReads", "Reads")):
+        rc, text, launches, trace, secs = run_script(name, [run_dir])
+        if rc != 0:
+            raise AssertionError(f"scripts 5 Mb: {name}.py returned {rc}")
+        h = stage_hashes(run_dir)[stage]
+        if h != real["hashes"][stage]:
+            raise AssertionError(f"scripts 5 Mb: {name}.py's {stage} hash differs from phase 4's")
+        # The palindrome pass's host prefilter clears every read of this
+        # sample, as in phase 4's run, so only computeAlignments launches.
+        if name == "ComputeAlignments" and not (launches["banded_fwd"] and launches["banded_tb"]):
+            raise AssertionError(f"scripts 5 Mb: {name}.py launched {launches}")
+        shapes = kernel_classes(trace, sm_clock_mhz, f"scripts 5 Mb {name}")
+        ms = sum(c["device_ms"] for c in shapes)
+        log(f"scripts 5 Mb: {name}.py {secs:.2f}s wall, kernels {ms:.1f} ms, launches "
+            f"{launches}, {stage} hash equal to phase 4's; {text.strip()}")
+        for k in total:
+            total[k] += launches[k]
+        out[name] = {"seconds": secs, "launches": launches, "shapes": shapes,
+                     "kernel_ms": ms, "stdout": text}
+    if not any(c["LA"] >= 8192 for c in out["ComputeAlignments"]["shapes"]):
+        raise AssertionError("scripts 5 Mb: ComputeAlignments.py launched no class at LA >= 8192")
+    out["launches"] = total
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -2290,6 +2467,9 @@ def main() -> int:
             out["mesh"] = run(9, phase_mesh, work, real, sm_clock)
             out["explorer"] = run(10, phase_explorer, work)
             spot_checks_finish()
+            # Phase 11 rewrites stages of the runs the spot checks read.
+            out["scripts_golden"] = run(11, phase_scripts_golden, work)
+            out["scripts_5mb"] = run(11, phase_scripts_real_size, real, sm_clock)
     finally:
         spot_checks_stop()
     log("phase seconds: " + ", ".join(f"{n} {t:.1f}" for n, t in sorted(seconds.items())))
@@ -2322,7 +2502,9 @@ def kernel_line(kernels, real, out):
     under waves 2 (phase 5), method 4 at a real size (phase 7), the
     mode-3 real-size run (phase 8), the mesh's runs (phase 9: the
     one-rank NCCL checks, and the sum over the two gloo ranks of the
-    golden and 5 Mb runs) and the explorer's pages (phase 10).
+    golden and 5 Mb runs), the explorer's pages (phase 10) and the stage
+    drivers (phase 11: the card's runs on the golden run, and the 5 Mb
+    run's).
     Times are phase 2's at the listed shape whose class took the most
     banded_fwd time on the mode-0 run."""
     paths = {
@@ -2337,6 +2519,8 @@ def kernel_line(kernels, real, out):
         "mesh-2ranks-5mb": out["mesh"]["c"]["launches"],
         "explorer": {k: sum(e["launches"][k] for e in out["explorer"].values())
                      for k in out["explorer"]["golden"]["launches"]},
+        "scripts-golden": out["scripts_golden"]["launches"],
+        "scripts-5mb": out["scripts_5mb"]["launches"],
     }
 
     def launched(name):

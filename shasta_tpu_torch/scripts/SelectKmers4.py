@@ -1,0 +1,24 @@
+#!/usr/bin/env python
+"""Re-run min-pair-distance (method 4) marker k-mer selection
+(reference: scripts/SelectKmers4.py).
+
+Usage: SelectKmers4.py <runDir>
+"""
+import sys
+
+from _common import open_run
+from shasta_tpu_torch.data.kmers import select_kmers_4
+
+
+def main(argv=None) -> int:
+    a, _ = open_run(argv)
+    ck = a.config.kmers
+    a.kmer_table = select_kmers_4(a.reads, ck.k, ck.probability, seed=ck.seed)
+    a.store.save_stage("Kmers", a.kmer_table.arrays())
+    print(f"Selected {a.kmer_table.marker_count} marker k-mers "
+          "(method 4, minimum pair distance filter).")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

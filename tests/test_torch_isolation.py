@@ -69,6 +69,13 @@ for extra in (["--Assembly.mode", "2"], ["--Assembly.mode", "3"],
     if extra[1] == "3":
         assert "createJaccardGraph" in summary["stageSeconds"]
         assert summary["mode3SegmentCount"] >= 1
+# A stage driver (shasta_tpu_torch/scripts) in this process on the run.
+sys.path.insert(0, os.path.join(os.path.dirname(shasta_tpu_torch.__file__), "scripts"))
+import _common
+out = io.StringIO()
+with contextlib.redirect_stdout(out):
+    rc = _common.load("ComputeAlignments").main([os.path.join(d, "run"), "--device", "cpu"])
+assert rc == 0 and out.getvalue() == "Computed 1992 alignments.\n", (rc, out.getvalue())
 bad = sorted(
     k for k in sys.modules
     if k in ("jax", "shasta_tpu") or k.startswith(("jax.", "jaxlib", "shasta_tpu."))
@@ -81,8 +88,10 @@ def test_package_runs_without_jax_or_reference(tmp_path):
     """A fresh interpreter imports every module of the port, the CLI
     included, and runs the whole assemble command on the golden input
     on the CPU, under modes 0, 2 and 3 and alignment method 4, renders the
-    explorer's pages over the mode-0 run and runs its LowHash again on a
-    one-rank mesh; neither jax nor shasta_tpu is loaded."""
+    explorer's pages over the mode-0 run, runs its LowHash again on a
+    one-rank mesh and its computeAlignments again through the driver
+    ComputeAlignments.py --device cpu; neither jax nor shasta_tpu is
+    loaded."""
     env = dict(os.environ, OMP_NUM_THREADS="1")
     env.pop("PYTHONPATH", None)
     out = subprocess.run(
@@ -99,12 +108,14 @@ _IMPORT = re.compile(
 
 
 def test_sources_import_neither_jax_nor_reference():
-    """No `import jax` and no import of shasta_tpu in the port's sources
-    or in chip_smoke.py (shasta_tpu_torch itself does not match)."""
+    """No `import jax` and no import of shasta_tpu in the port's sources,
+    its stage drivers (shasta_tpu_torch/scripts) included, or in
+    chip_smoke.py (shasta_tpu_torch itself does not match)."""
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for dirpath, _dirs, names in os.walk(PKG):
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
     assert len(files) > 20
+    assert os.path.join(PKG, "scripts", "ComputeAlignments.py") in files
     for path in files:
         with open(path) as f:
             src = f.read()

@@ -1,6 +1,16 @@
 """Shared pieces of the port's tests (numpy and torch only, so that the
 tests that run on the card need neither jax nor shasta_tpu)."""
 
+import contextlib
+import hashlib
+import io
+import json
+import os
+import re
+import runpy
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -179,14 +189,14 @@ def write_mode2_reads(path):
     synth.write_fasta(path, reads)
 
 
-def stage_hashes(run_dir):
+def stage_hashes(run_dir, store_cls=None):
     """tests/test_reference_parity.py:_stage_hashes: sha256 over each
-    array's name, dtype, shape and bytes, per stage manifest."""
-    import hashlib
+    array's name, dtype, shape and bytes, per stage manifest, read with
+    ``store_cls`` (default: the port's RunStore)."""
+    if store_cls is None:
+        from shasta_tpu_torch.data.store import RunStore as store_cls
 
-    from shasta_tpu_torch.data.store import RunStore
-
-    store = RunStore(run_dir, create=False)
+    store = store_cls(run_dir, create=False)
     out = {}
     for stage in sorted(store.stage_names()):
         h = hashlib.sha256()
@@ -281,3 +291,250 @@ def palindrome_reads(n=6):
     reads = synth.sample_reads(genome, 130, 3000, seed=4243, both_strands=True)[:n]
     half = genome[1000:2500]
     return reads + [np.concatenate([half, B.reverse_complement(half)])]
+
+
+# ---------------------------------------------------------------------------
+# The stage-driver scripts: scripts/ (the JAX package's) against
+# shasta_tpu_torch/scripts/ (the port's), each run on its own copy of one
+# run directory.
+# ---------------------------------------------------------------------------
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+JAX_SCRIPTS = os.path.join(ROOT, "scripts")
+PORT_SCRIPTS = os.path.join(ROOT, "shasta_tpu_torch", "scripts")
+
+# Files that hold times: the stage store's manifest (each stage's save
+# time) and the performance log.
+TIMED_FILES = {"manifest.json", "performance.log"}
+
+# What a script may print that differs between two correct runs: times
+# and rates, and the package's name.
+_TIMES = re.compile(r"\d+(\.\d+)? M unions/s")
+# write_output's summary keys that hold times and this process's memory.
+_MEASURED = re.compile(r"Seconds$|^elapsed|^peakMemory|CpuUtilization$")
+
+
+def _file_digest(path):
+    """sha256 of a file; of write_output's summaries, with the package's
+    name, times and memory taken out."""
+    with open(path, "rb") as f:
+        data = f.read()
+    name = os.path.basename(path)
+    if name == "AssemblySummary.json":
+        summary = {k: v for k, v in json.loads(data).items() if not _MEASURED.search(k)}
+        data = json.dumps(summary, sort_keys=True).encode()
+    elif name.endswith(".html"):
+        text = data.decode().replace("shasta_tpu_torch", "shasta_tpu")
+        data = re.sub(
+            r"<tr><th>(\w+)</th><td>[^<]*</td></tr>",
+            lambda m: "" if _MEASURED.search(m.group(1)) else m.group(0), text,
+        ).encode()
+    return hashlib.sha256(data).hexdigest()
+
+
+def script_state(root, store_cls=None):
+    """What a script step leaves behind under ``root``: the stage hashes
+    of each stage store under it, by run directory, and the _file_digest
+    of every file but those named in TIMED_FILES, by path (both relative
+    to ``root``)."""
+    out = {"stages": {}, "files": {}}
+    for dirpath, dirs, names in os.walk(root):
+        dirs.sort()
+        rel = os.path.relpath(dirpath, root).replace(os.sep, "/")
+        if os.path.exists(os.path.join(dirpath, "Data", "manifest.json")):
+            out["stages"][rel] = stage_hashes(dirpath, store_cls)
+        for n in names:
+            if n in TIMED_FILES:
+                continue
+            path = os.path.join(dirpath, n)
+            key = n if rel == "." else f"{rel}/{n}"
+            if os.path.islink(path):
+                out["files"][key] = "-> " + os.path.relpath(os.readlink(path), root)
+            else:
+                out["files"][key] = _file_digest(path)
+    return out
+
+
+def _exit_code(e):
+    return e.code if isinstance(e.code, int) else int(e.code is not None)
+
+
+def jax_script(name, argv):
+    """Run scripts/<name> (or the script at the absolute path ``name``)
+    as ``python scripts/<name> *argv`` would, in this process; its exit
+    code."""
+    path = name if os.path.isabs(name) else os.path.join(JAX_SCRIPTS, name)
+    old = sys.argv
+    sys.argv = [path] + list(argv)
+    try:
+        runpy.run_path(path, run_name="__main__")
+        return 0
+    except SystemExit as e:
+        return _exit_code(e)
+    finally:
+        sys.argv = old
+
+
+def port_script(name, argv):
+    """shasta_tpu_torch/scripts/<name>'s main(argv), in this process; its
+    exit code."""
+    if PORT_SCRIPTS not in sys.path:
+        sys.path.insert(0, PORT_SCRIPTS)
+    import _common
+
+    try:
+        return _common.load(name[: -len(".py")]).main(list(argv))
+    except SystemExit as e:
+        return _exit_code(e)
+
+
+def run_steps(steps, root, runner, store_cls=None):
+    """Run each step ({"script", "argv", "env"}; "{root}" in an argument
+    stands for ``root``) with ``runner``, and return per step its exit
+    code (or the exception it raised, with ``root`` as "<root>"), stdout,
+    stderr and script_state(root) after it."""
+    results = []
+    for step in steps:
+        argv = [a.replace("{root}", root) for a in step["argv"]]
+        env = {k: v.replace("{root}", root) for k, v in step.get("env", {}).items()}
+        old_env = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        out, err = io.StringIO(), io.StringIO()
+        try:
+            with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+                try:
+                    rc = runner(step["script"], argv)
+                except Exception as e:  # recorded, and held to the other side
+                    rc = f"{type(e).__name__}: {e}".replace(root, "<root>")
+        finally:
+            for k, v in old_env.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        results.append({
+            "rc": 0 if rc is None else rc,
+            "stdout": out.getvalue(), "stderr": err.getvalue(),
+            "state": script_state(root, store_cls),
+        })
+    return results
+
+
+_JAX_CHILD = r"""
+import json, os, sys
+sys.path.insert(0, sys.argv[1])
+import jax
+jax.config.update("jax_platforms", "cpu")
+from shasta_tpu.data.store import RunStore
+from tests.torch_common import jax_script, run_steps
+with open(sys.argv[3]) as f:
+    steps = json.load(f)
+with open(sys.argv[4], "w") as f:
+    json.dump(run_steps(steps, sys.argv[2], jax_script, RunStore), f)
+"""
+
+
+def run_jax_steps(steps, root):
+    """run_steps over the JAX package's scripts, in one child interpreter
+    (the two directories' _common modules share a name)."""
+    spec = os.path.join(os.path.dirname(root), os.path.basename(root) + "-steps.json")
+    result = spec[: -len(".json")] + "-out.json"
+    with open(spec, "w") as f:
+        json.dump(steps, f)
+    env = dict(os.environ, JAX_PLATFORMS="cpu", OMP_NUM_THREADS="1", PYTHONPATH=ROOT)
+    r = subprocess.run(
+        [sys.executable, "-c", _JAX_CHILD, JAX_SCRIPTS, root, spec, result],
+        cwd=root, env=env, capture_output=True, text=True, timeout=900,
+    )
+    assert r.returncode == 0, r.stderr[-3000:]
+    with open(result) as f:
+        return json.load(f)
+
+
+def repaired_script(name, old, new, dest):
+    """A copy of scripts/<name> in the directory ``dest`` with its one
+    ``old`` text replaced by ``new`` (a fault repaired as the port repairs
+    it); its path."""
+    with open(os.path.join(JAX_SCRIPTS, name)) as f:
+        text = f.read()
+    assert text.count(old) == 1, (name, old)
+    path = os.path.join(dest, name[: -len(".py")] + "-repaired.py")
+    with open(path, "w") as f:
+        f.write(text.replace(old, new))
+    return path
+
+
+def normalized(text, root):
+    """A script's output with its root directory, the package's name and
+    printed rates taken out."""
+    text = text.replace(root, "<root>").replace("shasta_tpu_torch", "shasta_tpu")
+    return _TIMES.sub("<rate>", text)
+
+
+def sampled_reads(genome_len, reads, read_len, seeds):
+    """A writer of a FASTA of ``reads`` reads of ``read_len`` bases from
+    both strands of a random genome (``seeds``: the genome's and the
+    reads'), made with the port's utils/synth.py."""
+    from shasta_tpu_torch.utils import synth
+
+    def write(path):
+        genome = synth.random_genome(genome_len, seed=seeds[0])
+        synth.write_fasta(
+            path, synth.sample_reads(genome, reads, read_len, seed=seeds[1], both_strands=True)
+        )
+
+    return write
+
+
+def small_run(root, write_reads, **overrides):
+    """The port's whole assemble run on the CPU, under SMALL_CONF and
+    ``overrides`` ({"Section.key": value}), on the reads
+    ``write_reads(path)`` writes, into ``root/base/run``; returns that run
+    directory."""
+    from shasta_tpu_torch.pipeline.assemble import run_assembly
+    from shasta_tpu_torch.pipeline.config import AssemblyConfig
+
+    base = os.path.join(root, "base")
+    os.makedirs(base)
+    fasta = os.path.join(base, "reads.fasta")
+    write_reads(fasta)
+    cfg = AssemblyConfig()
+    for section, key, value in SMALL_CONF:
+        cfg.set(section, key, value)
+    for name, value in overrides.items():
+        cfg.set(*name.split(".", 1), str(value))
+    run_dir = os.path.join(base, "run")
+    with contextlib.redirect_stdout(io.StringIO()):
+        run_assembly([fasta], run_dir, cfg, device="cpu")
+    return run_dir
+
+
+def twin_runs(run_dir, root):
+    """Two copies of ``run_dir``, as ``root/jax/run`` and ``root/port/run``;
+    returns the two roots."""
+    import shutil
+
+    roots = []
+    for side in ("jax", "port"):
+        r = os.path.join(root, side)
+        shutil.copytree(run_dir, os.path.join(r, "run"), symlinks=True)
+        roots.append(r)
+    return roots
+
+
+def assert_same_step(ref, got, ref_root, got_root, expect=None, rc=0):
+    """One script step of the JAX package (``ref``) and of the port
+    (``got``), from run_steps: the exit code ``rc`` on both, equal
+    normalized stdout (holding ``expect``), equal stage hashes and equal
+    files."""
+    assert (ref["rc"], got["rc"]) == (rc, rc), (
+        ref["rc"], got["rc"], ref["stderr"][-2000:], got["stderr"][-2000:]
+    )
+    out = normalized(got["stdout"], got_root)
+    assert out == normalized(ref["stdout"], ref_root)
+    if expect is not None:
+        assert expect in out, out
+    for kind in ("stages", "files"):
+        a, b = ref["state"][kind], got["state"][kind]
+        differ = sorted(k for k in set(a) | set(b) if a.get(k) != b.get(k))
+        assert not differ, (kind, differ)
