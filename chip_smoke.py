@@ -8,22 +8,27 @@ no result line):
 1. Device and build: the card's name and power limit, then the CUDA
    kernels built from shasta_tpu_torch/csrc with nvcc (the native host
    library builds beside it, in parallel); ptxas's registers and spills
-   (any spill of the anti-diagonal body fails), and the int32
-   instructions the anti-diagonal body issues per band cell (its SASS)
-   at 1, 2 and 4 pairs per warp, which must be no fewer than the bound
-   counts.
+   (any spill of the anti-diagonal body or of the row-scan body fails),
+   and the int32 instructions the anti-diagonal body issues per band
+   cell (its SASS) at 1, 2 and 4 pairs per warp, which must be no fewer
+   than the bound counts.
 2. Kernels against their plain PyTorch version on the card, at the
    main path's (LA, W) classes, a phase-1 launch of 16,384 small pairs,
-   odd widths, LA 1 and 17, two bands past 16384 lanes (LA 512 x W 20480
-   and LA 256 x W 40000, whose rows the row-scan body keeps in device
-   memory), the edge-case, long-gap and mixed-length
-   batches: exact int32 equality of each kernel's output and of the
-   fused (B, 16 + LA) result. banded_fwd runs both its bodies where
-   W <= DIAG_W_LIMIT (the anti-diagonal body and the row-scan body, timed
-   in turns in this call), banded_fwd_waves runs at waves 2 and 4
-   wherever fwd_body gives the anti-diagonal body; times, Gcells/s and
-   the least time the card could take (the bound). Then both forward
-   bodies and the waves kernel at 1 to 16 blocks per SM.
+   odd widths, LA 1 and 17, phase-1-like full-matrix batches (LA 128 x
+   W 512 and 512 x 2048), bands wider than one block holds, which the
+   row-scan body runs on thread-block clusters (LA 512 x W 20480, a band
+   sliding across LA = LB = 24576 at W 20480, and 256 x 40000, past one
+   cluster, in two strips),
+   the edge-case, long-gap and mixed-length batches: exact int32
+   equality of each kernel's output and of the fused (B, 16 + LA)
+   result. banded_fwd runs both its bodies where W <= DIAG_W_LIMIT
+   (the anti-diagonal body and the row-scan body, timed in turns in this
+   call), banded_fwd_waves runs at waves 2 and 4 wherever fwd_kernel
+   gives it (the anti-diagonal body's shapes up to W 2048); times, Gcells/s, the nominal and the
+   in-matrix cells, and the least time the card could take (the bound:
+   the in-matrix cells' int32 operations, or the inputs and every dirs
+   word of a processed row); any time below its bound fails. Then both
+   forward bodies and the waves kernel at 1 to 16 blocks per SM.
 3. The golden input (tests/golden/mode0_stage_hashes.json's) through the
    whole assemble command (shasta_tpu_torch.__main__.main) on the card,
    on the card with SHASTA_TORCH_WAVES=2 and =4, and on the CPU: all
@@ -179,22 +184,30 @@ GOLDEN_KEYS = [
 ]
 WAVES = (2, 4)
 SCORES = dict(match=6, mismatch=-1, gap=-1)
-# (LA = LB, W, pairs): phase 1's class, the phase-2 classes (4096 x 128
-# takes the most kernel time on the real-size run), a wide band, the
-# ultra-long classes, a phase-1 launch at _batch_plan's 16,384 pairs, a
-# band past 4096 lanes (the row-scan body's
-# 16-lanes-per-thread instantiation, which a max_band above 2047
-# reaches), widths that are not a multiple of 32 (the anti-diagonal
-# body's phantom lanes at K = 2, 16, 16; the row-scan body just past
-# 2048), LA 1 and 17, and two bands past ROWS_SMEM_MAX_W (16384), where
-# the row-scan body keeps its rows in device memory and runs each row in
-# tiles of 16384 lanes (wide_batch: paths across a tile's edge).
+# (LA = LB, W, pairs, batch): phase 1's class, the phase-2 classes (4096
+# x 128 takes the most kernel time on the real-size run), a wide band,
+# the ultra-long classes, a phase-1 launch at _batch_plan's 16,384 pairs,
+# a band past 4096 lanes (which a max_band above 2047 reaches), widths
+# that are not a multiple of 32 (the anti-diagonal body's phantom lanes
+# at K = 2, 16, 16; the row-scan body just past 2048), LA 1 and 17,
+# W = LA and W = 2 LA, and W past DIAG_MAX_W at W <= 2 LA (where
+# fwd_body's crossover lies), all "make" (make_batch); phase-1-like
+# batches ("full": full_batch, lengths below LA and the full-matrix
+# band); and bands wider than one block holds, on the row-scan body's
+# clusters (40000 in two strips): "wide" (wide_batch, paths across lane
+# 16384) and "sliding" (sliding_batch, LA = LB = 24576, W 20480,
+# band_min = -W / 2: 2 pairs, about 115 ms on the card and 10 s for the
+# plain version, within the script's time).
 SHAPES = [
-    (128, 512, 2048), (2048, 128, 512), (4096, 512, 256), (1024, 2048, 128),
-    (4096, 128, 256), (8192, 512, 64), (32768, 128, 64), (512, 8192, 8),
-    (1024, 33, 256), (1024, 288, 256), (2048, 511, 128), (512, 2049, 32),
-    (1, 128, 64), (17, 512, 64), (256, 128, 16384), (512, 20480, 4),
-    (256, 40000, 4),
+    (128, 512, 2048, "make"), (2048, 128, 512, "make"), (4096, 512, 256, "make"),
+    (1024, 2048, 128, "make"), (4096, 128, 256, "make"), (8192, 512, 64, "make"),
+    (32768, 128, 64, "make"), (512, 8192, 8, "make"), (1024, 33, 256, "make"),
+    (1024, 288, 256, "make"), (2048, 511, 128, "make"), (512, 2049, 32, "make"),
+    (1, 128, 64, "make"), (17, 512, 64, "make"), (256, 128, 16384, "make"),
+    (1024, 1024, 128, "make"), (512, 1024, 128, "make"), (2048, 4096, 32, "make"),
+    (4096, 2049, 64, "make"),
+    (128, 512, 2048, "full"), (512, 2048, 512, "full"),
+    (512, 20480, 4, "wide"), (256, 40000, 4, "wide"), (24576, 20480, 2, "sliding"),
 ]
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 INT32_LANES_PER_SM = 64  # Hopper SM: 4 partitions x 16 INT32 units
@@ -276,9 +289,14 @@ def phase_device_and_build():
                 "the anti-diagonal body issues fewer int32 instructions per cell than "
                 "FWD_INT_OPS_PER_CELL: the bound is not a lower bound"
             )
-    spilled = [k for k, e in ptxas.items() if "banded_fwd_diag.cu" in k and e.get("spill_bytes")]
+    spilled = [
+        k for k, e in ptxas.items()
+        if ("banded_fwd_diag.cu" in k or "banded_align.cu" in k) and e.get("spill_bytes")
+    ]
     if spilled:
-        raise AssertionError(f"the anti-diagonal body spills registers: {spilled}")
+        raise AssertionError(f"a forward body spills registers: {spilled}")
+    if not any("banded_align.cu" in k for k in ptxas):
+        raise AssertionError("no ptxas report of the row-scan body's kernels")
     sm_clock_mhz = float(smi("clocks.max.sm").split()[0])
     return sm_clock_mhz, {"sass": sass, "ptxas": ptxas}
 
@@ -468,6 +486,49 @@ def wide_batch(LA, W, B, seed=31):
     return a, a_len, b, b_len, bm
 
 
+def full_batch(LA, W, B, seed=41, alpha=1000):
+    """Phase-1-like pairs (ops/align.py, method 3's first phase): lengths
+    uniform in [LA / 4, LA], the full-matrix band j - i in [-la, lb]
+    centred in W as the align engine centres it (band_min = -la -
+    (W - la - lb - 1) // 2), b a shifted copy of a with ~8% random
+    substitutions; one pair with b_len = LA."""
+    rng = np.random.default_rng(seed)
+    a = np.full((B, LA), -1, np.int32)
+    b = np.full((B, LA), -2, np.int32)
+    a_len = np.zeros(B, np.int32)
+    b_len = np.zeros(B, np.int32)
+    bm = np.zeros(B, np.int32)
+    for t in range(B):
+        la = int(rng.integers(max(1, LA // 4), LA + 1))
+        lb = LA if t == 0 else int(rng.integers(max(1, LA // 4), LA + 1))
+        g = rng.integers(0, alpha, la + lb + 16).astype(np.int32)
+        sh = int(rng.integers(0, 16))
+        a[t, :la] = g[:la]
+        b[t, :lb] = g[sh : sh + lb]
+        sub = rng.random(lb) < 0.08
+        b[t, :lb][sub] = rng.integers(0, alpha, int(sub.sum()))
+        a_len[t], b_len[t] = la, lb
+        bm[t] = -la - max(0, W - la - lb - 1) // 2
+    return a, a_len, b, b_len, bm
+
+
+def sliding_batch(LA, W, B, seed=51, alpha=1000):
+    """Pairs of LA = LB markers in a band of W < LA lanes centred on the
+    diagonal (band_min = -W / 2): the live window slides one column a
+    row across the whole of b; b is a copy of a shifted by up to W / 8
+    with ~8% random substitutions."""
+    rng = np.random.default_rng(seed)
+    a = rng.integers(0, alpha, (B, LA)).astype(np.int32)
+    b = np.full((B, LA), -2, np.int32)
+    for t in range(B):
+        sh = int(rng.integers(0, W // 8))
+        b[t, sh:] = a[t, : LA - sh]
+        sub = rng.random(LA) < 0.08
+        b[t][sub] = rng.integers(0, alpha, int(sub.sum()))
+    full = np.full(B, LA, np.int32)
+    return a, full, b, full.copy(), np.full(B, -(W // 2), np.int32)
+
+
 def cuda_ms(fn, reps):
     fn()
     torch.cuda.synchronize()
@@ -494,26 +555,35 @@ def bound_ms(ops, nbytes, sm_clock_mhz):
     return max(t_ops, t_bytes), by, t_ops, t_bytes
 
 
-def class_bound(name, LA, W, B, work, sm_clock_mhz):
-    """The bound of one main-path (kernel, LA, W) class from the work
-    its launches really did: banded_fwd's processed band cells (the
-    inputs read, 2 bits of dirs written per cell), banded_tb's walked
-    rows (one dirs word read per row, the (B, LA) matches written)."""
+def fwd_work(a_len, b_len, band_min, LA, LB, W):
+    """What a forward launch must do on these inputs: (in-matrix cells,
+    nominal cells, bytes). The in-matrix cells (0 <= j <= b_len on
+    processed rows, in_matrix_cells) are the ones whose int32 operations
+    the bound counts; the nominal cells are the band's, rows x W; the
+    bytes are the inputs read once and every dirs word of a processed
+    row written once."""
     from shasta_tpu_torch.ops import align_kernel as K
 
-    if name.startswith("banded_fwd"):
-        return bound_ms(
-            work * K.FWD_INT_OPS_PER_CELL, 4 * B * 2 * LA + 4 * 5 * B + work // 4,
-            sm_clock_mhz,
-        )
-    return bound_ms(work * TB_OPS_PER_ROW, 4 * B * LA + 4 * work + 16 * B, sm_clock_mhz)
+    B = a_len.shape[0]
+    rows = a_len.clamp(max=LA).to(torch.int64)
+    words = int(((rows + 15) // 16).sum()) * W
+    cells = K.in_matrix_cells(a_len, b_len, band_min, LA=LA, W=W)
+    return cells, int(rows.sum()) * W, 4 * B * (LA + LB) + 4 * 5 * B + 4 * words
+
+
+def check_shares(label, bound, times):
+    """Fails when a kernel's time is below its bound (a share past 100 %:
+    the bound undercounts the work)."""
+    over = {k: v for k, v in times.items() if v is not None and bound / v > 1.0}
+    if over:
+        raise AssertionError(f"{label}: time below the bound {bound:.4f} ms: {over}")
 
 
 def check_kernels(host, LA, W, plain=None, pmj=None):
     """Every kernel against the plain version on one batch: banded_fwd
     (each body that takes W) on every dirs word of a processed row and
     on best, bi and bd; banded_tb on the plain dirs; the fused output;
-    banded_fwd_waves (waves 2 and 4, where fwd_body gives "diag")
+    banded_fwd_waves (waves 2 and 4, where fwd_kernel gives it)
     followed by banded_tb. ``plain`` and ``pmj``: the plain version's
     forward and traceback outputs on these inputs, when the caller has
     them. Returns (device inputs, plain forward, plain fused, max error)."""
@@ -544,7 +614,7 @@ def check_kernels(host, LA, W, plain=None, pmj=None):
         errs[f"fwd {body}"] = fwd_err(K._banded_fwd_body(body, a, a_len, b, b_len, bm, **kw))
     errs["tb"] = int((K.banded_tb(pdirs, pbi, pbd, bm, LA=LA, W=W) - pmj).abs().max())
     errs["fused"] = int((K.banded_align_pairs(*dev, **kw) - pfused).abs().max())
-    for w in WAVES if K.fwd_body(LA, W) == "diag" else ():
+    for w in WAVES if K.fwd_kernel(LA, W, 2) == "banded_fwd_waves" else ():
         errs[f"waves {w}"] = max(
             fwd_err(K.banded_fwd_waves(a, a_len, b, b_len, bm, waves=w, **kw)),
             int((K.banded_align_pairs(*dev, waves=w, **kw) - pfused).abs().max()),
@@ -573,13 +643,14 @@ def phase_kernels(sm_clock_mhz):
         "at waves 2 and 4 included"
     )
     results = {}
-    for LA, W, B in SHAPES:
-        if W > K.ROWS_SMEM_MAX_W:
-            host = wide_batch(LA, W, B)
-        else:
-            host = make_batch(LA * 7 + W, B, LA, W)
+    batches = {"make": lambda LA, W, B: make_batch(LA * 7 + W, B, LA, W),
+               "full": lambda LA, W, B: full_batch(LA, W, B, seed=LA + W),
+               "wide": wide_batch, "sliding": sliding_batch}
+    for LA, W, B, kind in SHAPES:
+        host = batches[kind](LA, W, B)
         LB = host[2].shape[1]
         kw = dict(LA=LA, LB=LB, W=W, **SCORES)
+        plan = K.rows_plan(LA, LB, W)
         # The plain version once, timed (forward, then traceback); the
         # kernels are held to these outputs.
         dev = [torch.from_numpy(x).cuda() for x in host]
@@ -618,14 +689,10 @@ def phase_kernels(sm_clock_mhz):
             w: cuda_ms(
                 lambda: K.banded_fwd_waves(a, a_len, b, b_len, bm, waves=w, **kw), reps
             )
-            for w in (WAVES if body == "diag" else ())
+            for w in (WAVES if K.fwd_kernel(LA, W, 2) == "banded_fwd_waves" else ())
         }
 
-        rows = int(a_len.clamp(max=LA).sum())
-        cells = rows * W
-        fwd_bytes = 4 * B * (LA + LB) + 4 * 5 * B + sum(
-            -(-int(r) // 16) * W * 4 for r in a_len.tolist()
-        )
+        cells, nominal, fwd_bytes = fwd_work(a_len, b_len, bm, LA, LB, W)
         fwd_bound, fwd_by, fwd_ops_ms, fwd_bytes_ms = bound_ms(
             cells * K.FWD_INT_OPS_PER_CELL, fwd_bytes, sm_clock_mhz
         )
@@ -633,9 +700,15 @@ def phase_kernels(sm_clock_mhz):
         tb_bound, tb_by, tb_ops_ms, tb_bytes_ms = bound_ms(
             walked * TB_OPS_PER_ROW, 4 * B * LA + 4 * walked + 16 * B, sm_clock_mhz
         )
+        label = f"LA={LA} W={W} B={B} {kind}"
+        check_shares(label, fwd_bound, {"rows": rows_ms, "diag": diag_ms, **{
+            f"waves {w}": ms for w, ms in waves_ms.items()}})
+        check_shares(label, tb_bound, {"tb": tb_ms})
         gcells = B * LA * W / ((fwd_ms + tb_ms) * 1e-3) / 1e9
-        results[(LA, W)] = {
-            "LA": LA, "LB": LB, "W": W, "B": B, "matched": n_matched, "body": body,
+        results[(LA, W, kind)] = {
+            "LA": LA, "LB": LB, "W": W, "B": B, "batch": kind, "matched": n_matched,
+            "body": body, "rows_plan": plan,
+            "nominal_cells": nominal, "in_matrix_cells": cells,
             "fwd_ms": fwd_ms, "rows_ms": rows_ms, "diag_ms": diag_ms,
             "fwd_turns_ms": turns, "tb_ms": tb_ms,
             "fwd_plain_ms": (t1 - t0) * 1e3, "tb_plain_ms": (t2 - t1) * 1e3,
@@ -647,12 +720,15 @@ def phase_kernels(sm_clock_mhz):
             "waves_ms": waves_ms, "waves_max_abs_err": max_err,
         }
         log(
-            f"kernel LA={LA} W={W} B={B}"
+            f"kernel {label}"
             + (f" LB={LB}" if LB != LA else "")
-            + f": equal (matches {n_matched}); "
-            f"fwd ({body}) {fwd_ms:.3f} ms; anti-diagonal body "
+            + f": equal (matches {n_matched}); cells nominal {nominal}, in-matrix "
+            f"{cells} ({cells / max(1, nominal):.1%}); fwd ({body}) {fwd_ms:.3f} ms; "
+            f"anti-diagonal body "
             + (f"{diag_ms:.3f} ms ({fwd_bound / diag_ms:.1%} of bound)" if both else "-")
-            + f", row-scan body {rows_ms:.3f} ms ({fwd_bound / rows_ms:.1%}) "
+            + f", row-scan body ({plan['tier']}, {plan['cols_per_thread']} columns a "
+            f"thread, {plan['threads']} threads, {plan['blocks']} blocks a pair) "
+            f"{rows_ms:.3f} ms ({fwd_bound / rows_ms:.1%}) "
             f"(turns {', '.join(f'{x:.3f}' for x in turns)}; plain "
             f"{(t1 - t0) * 1e3:.1f} ms; bound {fwd_bound:.4f} ms by {fwd_by}); "
             f"tb {tb_ms:.3f} ms (plain {(t2 - t1) * 1e3:.1f} ms, bound "
@@ -839,7 +915,7 @@ def phase_golden(work):
 
 # The palindrome pass's deltaThreshold past 8192: a self-alignment band
 # of 2 x 8200 = 16400 lanes, which the align engine runs in its W class
-# 32768, past ROWS_SMEM_MAX_W.
+# 32768, on the row-scan body.
 PALINDROME_DELTA = 8200
 
 
@@ -944,30 +1020,46 @@ def grade(label, path, truth):
 
 
 def kernel_classes(trace, sm_clock_mhz, label, echo=True):
-    """Per (kernel, LA, W) launches, pairs, device ms, processed work and
-    bound of one traced run; prints one line per class with ``echo``."""
+    """Per (kernel, LA, W) launches, pairs, device ms, work and bound of
+    one traced run; prints one line per class with ``echo``. The work:
+    banded_fwd's in-matrix cells (fwd_work: the bound counts their
+    operations, and the bytes of the inputs and of every dirs word of a
+    processed row), banded_tb's walked rows (one dirs word read per row,
+    the (B, LA) matches written)."""
+    from shasta_tpu_torch.ops import align_kernel as K
+
     by_shape = {}
-    for name, body, LA, W, B, rows, start, end in trace:
-        e = by_shape.setdefault((name, body, LA, W), [0, 0, 0.0, 0, 0, 0])
-        e[0] += 1
-        e[1] += B
-        e[2] += start.elapsed_time(end)
-        e[3] += int(rows.clamp(max=LA).sum()) * (W if name.startswith("banded_fwd") else 1)
-        e[4] += B * LA * W
+    for name, body, LA, W, B, work, start, end in trace:
+        e = by_shape.setdefault((name, body, LA, W), [0, 0, 0.0, 0, 0, 0, 0, 0, 0])
+        if name.startswith("banded_fwd"):
+            a_len, b_len, band_min, LB = work
+            cells, processed, nbytes = fwd_work(a_len, b_len, band_min, LA, LB, W)
+            ops = cells * K.FWD_INT_OPS_PER_CELL
+        else:
+            cells = processed = int(work[0].sum())
+            nbytes = 4 * B * LA + 4 * cells + 16 * B
+            ops = cells * TB_OPS_PER_ROW
+        for k, x in enumerate((1, B, start.elapsed_time(end), cells, B * LA * W, 0,
+                               processed, ops, nbytes)):
+            e[k] += x
         e[5] = max(e[5], B)
     shapes = []
-    for (name, body, LA, W), (n, B, ms, work, nominal, bmax) in sorted(by_shape.items()):
-        bound, by, _ops_ms, _bytes_ms = class_bound(name, LA, W, B, work, sm_clock_mhz)
+    for (name, body, LA, W), e in sorted(by_shape.items()):
+        n, B, ms, work, nominal, bmax, processed, ops, nbytes = e
+        bound, by, _ops_ms, _bytes_ms = bound_ms(ops, nbytes, sm_clock_mhz)
         shapes.append({
             "kernel": name, "body": body, "LA": LA, "W": W, "launches": n, "pairs": B,
             "max_pairs_per_launch": bmax, "device_ms": ms, "work": work,
-            "nominal_cells": nominal, "bound_ms": bound, "bound_by": by,
+            "processed_cells": processed, "nominal_cells": nominal,
+            "bound_ms": bound, "bound_by": by,
         })
         if echo:
             log(
                 f"  [{label}] {name} ({body}) LA={LA} W={W}: {n} launches, {B} pairs "
                 f"({B / n:.0f} per launch, at most {bmax}), {ms:.2f} ms "
                 f"(bound {bound:.4f} ms by {by}, {bound / ms:.1%})"
+                + (f"; cells processed {processed}, in-matrix {work}"
+                   if name.startswith("banded_fwd") else "")
             )
     return shapes
 
@@ -1077,14 +1169,17 @@ def phase_real_size(work, sm_clock_mhz):
     fwd_ms = sum(c["device_ms"] for c in shapes if c["kernel"] == "banded_fwd")
     tb_ms = sum(c["device_ms"] for c in shapes if c["kernel"] == "banded_tb")
     nominal = sum(c["nominal_cells"] for c in shapes if c["kernel"] == "banded_fwd")
-    real_cells = sum(c["work"] for c in shapes if c["kernel"] == "banded_fwd")
+    real_cells = sum(c["processed_cells"] for c in shapes if c["kernel"] == "banded_fwd")
+    in_matrix = sum(c["work"] for c in shapes if c["kernel"] == "banded_fwd")
     dp_wall = times["flagPalindromicReads"] + times["computeAlignments"]
     log(
         f"real size launches: {launches}; peak device memory {peak / 2**30:.2f} GiB; "
         f"peak RSS {summary['peakMemoryUsageKB'] / 2**20:.2f} GiB (this process); "
         f"kernel device time fwd {fwd_ms:.1f} ms, tb {tb_ms:.1f} ms; card-side "
         f"{nominal / ((fwd_ms + tb_ms) * 1e-3) / 1e9:.2f} Gcells/s (B*LA*W), "
-        f"{real_cells / (fwd_ms * 1e-3) / 1e9:.2f} Gcells/s of processed rows in banded_fwd; "
+        f"{real_cells / (fwd_ms * 1e-3) / 1e9:.2f} Gcells/s of processed rows in banded_fwd "
+        f"({in_matrix} in-matrix cells of {real_cells}, "
+        f"{in_matrix / (fwd_ms * 1e-3) / 1e9:.2f} Gcells/s); "
         f"the two kernels are busy {(fwd_ms + tb_ms) / 1e3 / dp_wall:.1%} of the "
         f"wall time of the two stages that launch them ({dp_wall:.2f}s)"
     )
@@ -1181,7 +1276,7 @@ def phase_real_size(work, sm_clock_mhz):
         "peak_rss_kb": summary["peakMemoryUsageKB"],
         "summary": {k: v for k, v in summary.items() if not isinstance(v, (dict, list))},
         "shapes": shapes, "fwd_ms": fwd_ms, "tb_ms": tb_ms, "nominal_cells": nominal,
-        "processed_cells": real_cells,
+        "processed_cells": real_cells, "in_matrix_cells": in_matrix,
         "reruns": reruns, "by_class": by_class, "grade": graded, "hashes": run_hashes,
     }
 
@@ -2505,8 +2600,12 @@ def kernel_line(kernels, real, out):
     golden and 5 Mb runs), the explorer's pages (phase 10) and the stage
     drivers (phase 11: the card's runs on the golden run, and the 5 Mb
     run's).
-    Times are phase 2's at the listed shape whose class took the most
-    banded_fwd time on the mode-0 run."""
+    banded_fwd's entry is its row-scan body's (csrc/banded_align.cu):
+    phase 2's times at the shape of the row-scan body's class that took
+    the most of its time on the mode-0 run (a phase-1-like batch where
+    phase 2 has one), with the anti-diagonal body's beside them at the
+    shape whose class took the most banded_fwd time, where banded_tb's
+    times are taken too."""
     paths = {
         "mode0": real["launches"],
         "mode0-waves2": real["reruns"]["waves2"]["launches"],
@@ -2527,13 +2626,43 @@ def kernel_line(kernels, real, out):
         ran = [p for p, launches in paths.items() if launches[name]]
         return {"launches": sum(paths[p][name] for p in ran), "paths": ran}
 
-    fwd_ms = {}
+    def by_body(shapes):
+        n = {"rows": 0, "diag": 0}
+        for c in shapes:
+            if c["kernel"] == "banded_fwd":
+                n[c["body"]] += c["launches"]
+        return n
+
+    # banded_fwd's launches on each body, on the paths that keep a trace.
+    bodies = {p: by_body(shapes) for p, shapes in {
+        "palindrome": out["palindrome_wide"]["cuda"]["shapes"],
+        "mode0": real["shapes"],
+        "mode0-waves2": real["reruns"]["waves2"]["shapes"],
+        "mode2": out["mode2_real_size"]["shapes"],
+        "method4": out["method4_real_size"]["shapes"],
+        "mode3": out["mode3_real_size"]["shapes"],
+        "mesh-2ranks-5mb": [c for r in out["mesh"]["c"]["ranks"] for c in r["shapes"]],
+        "scripts-5mb": [c for n in ("ComputeAlignments", "FlagPalindromicReads")
+                        for c in out["scripts_5mb"][n]["shapes"]],
+    }.items()}
+    fwd_ms, rows_ms = {}, {}
     for c in real["shapes"]:
         if c["kernel"] == "banded_fwd":
-            fwd_ms[c["LA"], c["W"]] = fwd_ms.get((c["LA"], c["W"]), 0.0) + c["device_ms"]
-    rep = max(kernels, key=lambda k: (fwd_ms.get(k, 0.0), k[0] * k[1]))
+            key = (c["LA"], c["W"])
+            fwd_ms[key] = fwd_ms.get(key, 0.0) + c["device_ms"]
+            if c["body"] == "rows":
+                rows_ms[key] = rows_ms.get(key, 0.0) + c["device_ms"]
+    rep = max(
+        (k for k in kernels if k[2] == "make"),
+        key=lambda k: (fwd_ms.get(k[:2], 0.0), k[0] * k[1]),
+    )
     r = kernels[rep]
     shape = {"LA": rep[0], "W": rep[1], "B": r["B"]}
+    rep_rows = max(
+        (k for k, v in kernels.items() if v["body"] == "rows"),
+        key=lambda k: (rows_ms.get(k[:2], 0.0), k[2] == "full", k[0] * k[1]),
+    )
+    rr = kernels[rep_rows]
     # banded_fwd_waves at the listed shape, among those it takes, whose
     # class took the most forward time in the waves-2 rerun.
     waves_fwd = {
@@ -2542,19 +2671,25 @@ def kernel_line(kernels, real, out):
     }
     rep_w = max(
         (k for k, v in kernels.items() if v["waves_ms"]),
-        key=lambda k: (waves_fwd.get(k, 0.0), k[0] * k[1]),
+        key=lambda k: (waves_fwd.get(k[:2], 0.0), k[0] * k[1]),
     )
     rw = kernels[rep_w]
     csrc = "shasta_tpu_torch/csrc/"
     return {"kernels": [
-        {"name": "banded_fwd", "route": "cuda",
-         "source": csrc + ("banded_fwd_diag.cu" if r["body"] == "diag" else "banded_align.cu"),
+        {"name": "banded_fwd", "route": "cuda", "source": csrc + "banded_align.cu",
          "replaces": "shasta_tpu/ops/align_pallas.py:156,581",
-         **launched("banded_fwd"), "max_abs_err": r["max_abs_err"],
-         "ms": r["fwd_ms"], "plain_ms": r["fwd_plain_ms"],
-         "bound_ms": r["fwd_bound_ms"], "bound_by": r["fwd_bound_by"],
-         "library_ms": None, "shape": dict(shape, body=r["body"]),
-         "row_scan_ms": r["rows_ms"]},
+         **launched("banded_fwd"),
+         "max_abs_err": max(k["max_abs_err"] for k in kernels.values()),
+         "ms": rr["rows_ms"], "plain_ms": rr["fwd_plain_ms"],
+         "bound_ms": rr["fwd_bound_ms"], "bound_by": rr["fwd_bound_by"],
+         "library_ms": None,
+         "shape": {"LA": rep_rows[0], "W": rep_rows[1], "B": rr["B"],
+                   "batch": rep_rows[2], "body": "rows", "rows_plan": rr["rows_plan"]},
+         "launches_by_body": bodies,
+         "anti_diagonal": {
+             "source": csrc + "banded_fwd_diag.cu", "ms": r["diag_ms"],
+             "plain_ms": r["fwd_plain_ms"], "bound_ms": r["fwd_bound_ms"],
+             "bound_by": r["fwd_bound_by"], "shape": dict(shape, body=r["body"])}},
         {"name": "banded_tb", "route": "cuda", "source": csrc + "banded_tb.cu",
          "replaces": "shasta_tpu/ops/align_pallas.py:296,714",
          **launched("banded_tb"), "max_abs_err": r["max_abs_err"],

@@ -1,8 +1,8 @@
 // The anti-diagonal body of the forward DP of banded marker alignment,
 // for NVIDIA Hopper (sm_90a), with P = 1, 2 or 4 pairs per warp:
 // banded_fwd (P = 1, bands of W <= 4096 lanes; banded_fwd gives it
-// W <= DIAG_MAX_W = 2048 where W <= 2 LA: fwd_body, ops/align_kernel.py)
-// and banded_fwd_waves (P = 2 or 4, the same region: W <= 2048).
+// W <= DIAG_MAX_W = 4096 where W <= 2 LA: fwd_body, ops/align_kernel.py)
+// and banded_fwd_waves (P = 2 or 4, the same region up to W 2048).
 //
 // Replaces the forward half of the Pallas kernels of
 // shasta_tpu/ops/align_pallas.py: _kernel (:156-294) and

@@ -9,7 +9,14 @@ kernels (``csrc/*.cu``) replace its four Pallas kernels:
   the anti-diagonal body (``csrc/banded_fwd_diag.cu``, one block per
   pair, a warp per 128 lanes) where W <= ``DIAG_MAX_W`` and
   W <= ``DIAG_W_PER_LA`` * LA, the row-scan body
-  (``csrc/banded_align.cu``) elsewhere;
+  (``csrc/banded_align.cu``) elsewhere. The row-scan body computes only
+  the live lanes (the matrix and one margin column; :func:`live_lanes`)
+  in column coordinates, and writes every other lane's code, which the
+  scores fix (:func:`dead_lane_code`), as whole words; its threads are
+  sized by the widest column window a pair of the launch can have
+  (:func:`rows_plan`): one warp per pair up to 288 columns, one block
+  up to 2048, a thread-block cluster up to 32768, strips of 32768 past
+  that;
 - ``banded_tb`` (``csrc/banded_tb.cu``, one warp per pair) replaces
   ``_kernel``'s traceback half (:296-337), ``_tb_chunked_kernel`` (:714)
   and ``_kernel_waves``'s traceback half (:496-536), which walks each
@@ -17,16 +24,17 @@ kernels (``csrc/*.cu``) replace its four Pallas kernels:
 - ``banded_fwd_waves`` replaces ``_kernel_waves``'s forward half (:340):
   the anti-diagonal body with 2 or 4 pairs per warp on independent
   registers (the same source, ``csrc/banded_fwd_diag.cu``), for the
-  launches where :func:`fwd_body` gives "diag". ``banded_align_pairs``
-  runs it when ``SHASTA_TORCH_WAVES`` (or the ``waves`` argument) is 2 or
-  4 and ``banded_fwd`` elsewhere (:func:`fwd_kernel`).
+  launches where :func:`fwd_body` gives "diag" and W <= WAVES_MAX_W.
+  ``banded_align_pairs`` runs it when ``SHASTA_TORCH_WAVES`` (or the
+  ``waves`` argument) is 2 or 4 and ``banded_fwd`` elsewhere
+  (:func:`fwd_kernel`).
 
 The TPU splits monolithic and chunked regimes because of its VMEM
 budget; the card has no such budget, so one kernel pair serves every
-LA and every W (the row-scan body keeps its rows in shared memory up to
-``ROWS_SMEM_MAX_W`` lanes and in device memory past it). The forward
-kernel writes the 2-bit direction codes (16 rows to an int32 word) to
-device memory; the traceback kernel walks them back.
+LA and every W (the row-scan body keeps its rows in registers or shared
+memory at every width). The forward kernel writes the 2-bit direction
+codes (16 rows to an int32 word) to device memory; the traceback kernel
+walks them back.
 
 Contract (the JAX wrapper's, align_pallas.py:948-1017):
 
@@ -71,46 +79,57 @@ D_MATCH, D_MISMATCH, UP, LEFT = 0, 1, 2, 3
 LAUNCHES = {"banded_fwd": 0, "banded_tb": 0, "banded_fwd_waves": 0}
 
 # Optional launch trace: when a caller sets this to a list, every CUDA
-# launch appends (name, body, LA, W, B, rows, start, end) with CUDA
+# launch appends (name, body, LA, W, B, work, start, end) with CUDA
 # events recorded around it on the current stream. body: "diag" or
-# "rows" for the forward kernels, "warp" for the traceback; rows: the
-# clamped device lengths (a_len) of a forward launch, the best-end rows
-# (bi) of a traceback, for the work a launch really does. None: no
-# events.
+# "rows" for the forward kernels, "warp" for the traceback; work, for
+# what a launch really does: (a_len, b_len, band_min, LB), the clamped
+# device inputs, of a forward launch (in_matrix_cells counts its cells),
+# (bi,), the best-end rows, of a traceback. None: no events.
 TRACE = None
 
-# int32 operations the forward DP needs on an interior band cell (the
-# bound's count), with a DPX add-and-max (sm_90a's VIADDMNMX) counted as
-# one: match compare and select 2, the diag add 1, max(up + gap, diag) 1,
-# max(left + gap, base) 1 (the row's LEFT prefix max as a recurrence),
-# the direction code (two compares, three selects) 5, the 2-bit pack
-# (shift, or) 2, one validity mask 1. The end-cell accumulation and the
-# j == 0 clamp touch O(LA + W) cells of a pair and are left out, as are
-# the per-row lane-range tests, which a kernel can work out once per row.
+# int32 operations the forward DP needs on a band cell inside the matrix
+# (the bound counts them on in_matrix_cells), with a DPX add-and-max
+# (sm_90a's VIADDMNMX) counted as one: match compare and select 2, the
+# diag add 1, max(up + gap, diag) 1, max(left + gap, base) 1 (the row's
+# LEFT prefix max as a recurrence), the direction code (two compares,
+# three selects) 5, the 2-bit pack (shift, or) 2, one validity mask 1.
+# The end-cell accumulation and the j == 0 clamp touch O(LA + W) cells
+# of a pair and are left out, as are the per-row lane-range tests, which
+# a kernel can work out once per row.
 # The anti-diagonal body issues more per cell (chip_smoke.py phase 1
 # counts its SASS and checks that it issues no fewer).
 FWD_INT_OPS_PER_CELL = 13
 
 # Byte budget of the packed dirs of one forward launch.
 _DIRS_BYTES = 1 << 30
-# The widest band whose two rows the row-scan body keeps in shared
-# memory. Past it they lie in a per-pair scratch in device memory that
-# the wrapper allocates (2 (W + 1) int32 per pair), and each row runs in
-# tiles of 16384 lanes (csrc/banded_align.cu, banded_fwd_wide_kernel).
-ROWS_SMEM_MAX_W = 16384
+# The row-scan body's tiers (rows_plan), by the widest column window a
+# pair of the launch can have: one warp per pair up to ROWS_WARP_COLS
+# columns, one block up to ROWS_BLOCK_COLS, a cluster of one block per
+# ROWS_CLUSTER_COLS, 2 to 8, up to ROWS_STRIP_COLS (8 blocks of 512
+# threads of 8 columns), strips of ROWS_STRIP_COLS columns past it.
+ROWS_WARP_COLS = 32 * 9
+ROWS_BLOCK_COLS = 2048
+ROWS_CLUSTER_COLS = 4096
+ROWS_STRIP_COLS = 32768
 # The widest band the anti-diagonal body takes (1024 threads x 4 lanes).
 DIAG_W_LIMIT = 4096
 # The anti-diagonal body pays a ramp of W / 2 pair steps on every pair,
-# so banded_fwd gives it a launch only where W <= DIAG_W_PER_LA * LA. In
-# one call on an H100 (PERF.md, chip_smoke.py phase 2) it took less time
-# than the row-scan body at every phase-2 shape with LA >= W / 2 (LA / W
-# from 1/2 to 31) and more at the two with LA = W / 4 (128 x 512 and
-# 512 x 2049).
+# so banded_fwd gives it a launch only where W <= DIAG_W_PER_LA * LA.
+# Against the row-scan body that computes only the live lanes (PR 9's
+# chip_smoke.py phase 2 on an H100, bodies timed in turns; PERF.md) it
+# took less time at every shape with LA >= W / 2, W from 33 to 4096
+# (LA / W from 1/2 to 31; 1024 x 2048: 1.331 against 1.617 ms), and
+# more at every one with LA <= W / 4 (128 x 512, 512 x 2048 and 2049,
+# 17 x 512).
 DIAG_W_PER_LA = 2
-# The widest band banded_fwd gives the anti-diagonal body: the widest of
-# the main path, at which it measured faster (LA 1024 x W 2048). No wider
-# band was measured on it at LA >= W / 2.
-DIAG_MAX_W = 2048
+# The widest band banded_fwd gives the anti-diagonal body: its limit,
+# DIAG_W_LIMIT. Past 2048 lanes at LA >= W / 2 it was the faster body in
+# the same call (2048 x 4096: 4.085 against 4.957 ms; 4096 x 2049: 4.315
+# against 10.562 ms).
+DIAG_MAX_W = DIAG_W_LIMIT
+# The widest band banded_fwd_waves takes: a block of P >= 2 pairs holds
+# at most 32 / P warps (csrc/banded_fwd_diag.cu).
+WAVES_MAX_W = 2048
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC_DIR = os.path.join(_PKG, "csrc")
@@ -217,8 +236,10 @@ def build_kernels(force: bool = False) -> float:
             vp, ci = ctypes.c_void_p, ctypes.c_int
             lib.banded_fwd_diag_launch.argtypes = [vp] * 5 + [ci] * 7 + [vp] * 5
             lib.banded_fwd_diag_launch.restype = ci
-            # banded_fwd_rows_launch takes its row scratch after the scores.
-            lib.banded_fwd_rows_launch.argtypes = [vp] * 5 + [ci] * 7 + [vp] * 6
+            # banded_fwd_rows_launch takes its plan (tier, columns a
+            # thread, threads, blocks a pair) and strip_edges after the
+            # scores.
+            lib.banded_fwd_rows_launch.argtypes = [vp] * 5 + [ci] * 11 + [vp] * 6
             lib.banded_fwd_rows_launch.restype = ci
             lib.banded_tb_launch.argtypes = [vp] * 4 + [ci] * 3 + [vp] * 2
             lib.banded_tb_launch.restype = ci
@@ -252,12 +273,12 @@ def _trace_start():
     return ev
 
 
-def _trace_end(start, name, body, LA, W, B, rows) -> None:
+def _trace_end(start, name, body, LA, W, B, work) -> None:
     if start is None:
         return
     end = torch.cuda.Event(enable_timing=True)
     end.record()
-    TRACE.append((name, body, LA, W, B, rows, start, end))
+    TRACE.append((name, body, LA, W, B, work, start, end))
 
 
 # ---------------------------------------------------------------------------
@@ -268,6 +289,71 @@ def _trace_end(start, name, body, LA, W, B, rows) -> None:
 def n_words(LA: int) -> int:
     """Packed dirs words per lane: 16 rows of 2-bit codes per int32."""
     return (LA + 15) // 16
+
+
+def dead_lane_code(match: int, mismatch: int, gap: int) -> int:
+    """The 2-bit code of every lane of a processed row outside
+    0 <= j <= b_len + 1: both previous-row neighbours NEG_INF (outside
+    the matrix, or the margin column's invalid V) and b padding, so no
+    match; the cell formula then gives a code the scores fix (3, LEFT,
+    at 6/-1/-1). The row-scan body's launcher works it out alike."""
+    diag = NEG_INF + mismatch
+    base = max(diag, NEG_INF + gap)
+    return LEFT if NEG_INF > base else (D_MISMATCH if base == diag else UP)
+
+
+def live_lanes(a_len, b_len, band_min, *, LA, W):
+    """Each pair's live lanes per row: (lo, hi), (B, LA) int32, row i + 1
+    live from lane lo to lane hi (lo > hi: none; rows past a_len have
+    none). A lane d of row i is live when its column j = i + band_min + d
+    lies in 0 <= j <= b_len + 1: the matrix and the margin column."""
+    dev = a_len.device
+    i = torch.arange(1, LA + 1, dtype=torch.int64, device=dev)[None, :]
+    r0 = band_min.to(torch.int64)[:, None] + i
+    lo = torch.clamp(-r0, min=0)
+    hi = torch.clamp(b_len.to(torch.int64)[:, None] + 1 - r0, max=W - 1)
+    hi = torch.where(i <= a_len.to(torch.int64)[:, None], hi, lo - 1)
+    hi = torch.maximum(hi, lo - 1)
+    return lo.to(torch.int32), hi.to(torch.int32)
+
+
+def in_matrix_cells(a_len, b_len, band_min, *, LA, W, chunk=1 << 22) -> int:
+    """The band cells of processed rows inside the matrix
+    (0 <= j <= b_len): the cells whose work the forward bound counts.
+    Summed over row blocks of at most ``chunk`` cells."""
+    rows = max(1, chunk // max(1, a_len.shape[0]))
+    total = 0
+    i64 = torch.int64
+    for r in range(0, LA, rows):
+        i = torch.arange(r + 1, min(LA, r + rows) + 1, dtype=i64, device=a_len.device)[None, :]
+        r0 = band_min.to(i64)[:, None] + i
+        lo = torch.clamp(r0, min=0)
+        hi = torch.minimum(b_len.to(i64)[:, None], r0 + W - 1)
+        n = torch.clamp(hi - lo + 1, min=0)
+        total += int(torch.where(i <= a_len.to(i64)[:, None], n, 0).sum())
+    return total
+
+
+def rows_plan(LA: int, LB: int, W: int) -> dict:
+    """The row-scan body's launch shape, from the widest column window a
+    pair can have, S = min(LB + 2, LA + W): "warp" (one warp per pair,
+    four pairs a block, K = 5 or 9 columns a thread) up to
+    ROWS_WARP_COLS; "block" (one block per pair of up to 512 threads of
+    4 columns) up to ROWS_BLOCK_COLS; "cluster" (one block per
+    ROWS_CLUSTER_COLS, 2 to 8, each of up to 512 threads of KC = 4 or
+    8 columns, the fewer that hold the block's share of
+    min(S, ROWS_STRIP_COLS)) past it; strips of ROWS_STRIP_COLS past
+    that. csrc/banded_align.cu launches what it gives."""
+    S = min(LB + 2, LA + W)
+    if S <= ROWS_WARP_COLS:
+        K = 5 if S <= 32 * 5 else 9
+        return dict(tier="warp", cols_per_thread=K, threads=128, blocks=1, strips=1, window=S)
+    C = 1 if S <= ROWS_BLOCK_COLS else min(8, max(2, -(-S // ROWS_CLUSTER_COLS)))
+    share = -(-min(S, ROWS_STRIP_COLS) // C)  # the columns of one block
+    KC = 4 if share <= 512 * 4 else 8
+    T = (-(-share // KC) + 31) // 32 * 32
+    return dict(tier="block" if C == 1 else "cluster", cols_per_thread=KC, threads=T,
+                blocks=C, strips=-(-S // (C * T * KC)), window=S)
 
 
 def fwd_body(LA: int, W: int) -> str:
@@ -289,11 +375,13 @@ def banded_fwd(a, a_len, b, b_len, band_min, *, LA, LB, W, match, mismatch, gap)
 
 
 def _banded_fwd_body(
-    body, a, a_len, b, b_len, band_min, *, LA, LB, W, match, mismatch, gap
+    body, a, a_len, b, b_len, band_min, *, LA, LB, W, match, mismatch, gap, plan=None
 ):
     """banded_fwd's launch of one body, "diag" (W <= DIAG_W_LIMIT) or
     "rows" (any W), on CUDA tensors; both give the same outputs.
-    chip_smoke.py and the card tests run both bodies through it."""
+    chip_smoke.py and the card tests run both bodies through it. plan:
+    the row-scan body's launch shape (default :func:`rows_plan`'s; any
+    shape the launcher takes gives the same outputs)."""
     _check_cuda(a, a_len, b, b_len, band_min)
     if body not in ("diag", "rows") or (body == "diag" and W > DIAG_W_LIMIT):
         raise ValueError(
@@ -302,15 +390,19 @@ def _banded_fwd_body(
         )
     extra = ()
     if body == "rows":
-        # Past ROWS_SMEM_MAX_W the kernel's rows live in this scratch; the
-        # caching allocator does not hand it out again before the
-        # launch's stream has passed it.
-        rowbuf = None
-        if W > ROWS_SMEM_MAX_W:
-            rowbuf = torch.empty(
-                a.shape[0] * 2 * (W + 1), dtype=torch.int32, device=a.device
+        plan = plan or rows_plan(LA, LB, W)
+        # Past one strip each strip passes every row's edge to the next
+        # through this buffer; the caching allocator does not hand it out
+        # again before the launch's stream has passed it.
+        edges = None
+        if plan["strips"] > 1:
+            edges = torch.empty(
+                a.shape[0] * 2 * (LA + 1), dtype=torch.int32, device=a.device
             )
-        extra = (None if rowbuf is None else rowbuf.data_ptr(),)
+        extra = (
+            0 if plan["tier"] == "warp" else 1, plan["cols_per_thread"], plan["threads"],
+            plan["blocks"], None if edges is None else edges.data_ptr(),
+        )
     return _launch_fwd(
         "banded_fwd", body, a, a_len, b, b_len, band_min, LA, LB, W,
         match, mismatch, gap, *extra,
@@ -321,15 +413,16 @@ def banded_fwd_waves(
     a, a_len, b, b_len, band_min, *, LA, LB, W, match, mismatch, gap, waves
 ):
     """:func:`banded_fwd` with ``waves`` (2 or 4) pairs per warp, for the
-    launches where :func:`fwd_body` gives "diag": the same outputs, bit
-    for bit. It raises on any other shape (it does not run the row-scan
-    body) and on any other ``waves``, on every device. A batch that is
-    not a multiple of ``waves`` leaves the last block's extra slots
-    empty (the kernel guards them)."""
-    if waves not in (2, 4) or fwd_body(LA, W) != "diag":
+    launches where :func:`fwd_kernel` gives it (:func:`fwd_body` gives
+    "diag" and W <= WAVES_MAX_W): the same outputs, bit for bit. It
+    raises on any other shape (it does not run the row-scan body) and on
+    any other ``waves``, on every device. A batch that is not a multiple
+    of ``waves`` leaves the last block's extra slots empty (the kernel
+    guards them)."""
+    if waves not in (2, 4) or fwd_kernel(LA, W, waves) != "banded_fwd_waves":
         raise ValueError(
             f"banded_fwd_waves takes waves 2 or 4 and the anti-diagonal "
-            f"body's shapes (W <= {DIAG_MAX_W} and W <= {DIAG_W_PER_LA} LA); "
+            f"body's shapes up to W {WAVES_MAX_W} (W <= {DIAG_W_PER_LA} LA); "
             f"got LA={LA} W={W} waves={waves}"
         )
     if a.device.type != "cuda":
@@ -378,7 +471,7 @@ def _launch_fwd(name, body, a, a_len, b, b_len, band_min, LA, LB, W, match,
             f"B={B} LA={LA} LB={LB} W={W} {extra}"
         )
     LAUNCHES[name] += 1
-    _trace_end(ev, name, body, LA, W, B, a_len)
+    _trace_end(ev, name, body, LA, W, B, (a_len, b_len, band_min, LB))
     return dirs, best, bi, bd
 
 
@@ -404,7 +497,7 @@ def banded_tb(dirs, bi, bd, band_min, *, LA, W):
             f"banded_tb launch failed (cudaError {rc}) at B={B} LA={LA} W={W}"
         )
     LAUNCHES["banded_tb"] += 1
-    _trace_end(ev, "banded_tb", "warp", LA, W, B, bi)
+    _trace_end(ev, "banded_tb", "warp", LA, W, B, (bi,))
     return mj
 
 
@@ -603,11 +696,12 @@ def resolve_waves(waves=None) -> int:
 
 def fwd_kernel(LA: int, W: int, waves: int) -> str:
     """The forward kernel banded_align_pairs launches for ``waves`` pairs
-    per warp: "banded_fwd_waves" where waves > 1 and :func:`fwd_body`
-    gives "diag", "banded_fwd" elsewhere. This is the port's form of
-    ``_invoke``'s fallback to ``_kernel`` where its waves condition fails
-    (align_pallas.py:1159); the output is the same either way."""
-    if waves > 1 and fwd_body(LA, W) == "diag":
+    per warp: "banded_fwd_waves" where waves > 1, :func:`fwd_body` gives
+    "diag" and W <= WAVES_MAX_W, "banded_fwd" elsewhere. This is the
+    port's form of ``_invoke``'s fallback to ``_kernel`` where its waves
+    condition fails (align_pallas.py:1159); the output is the same
+    either way."""
+    if waves > 1 and fwd_body(LA, W) == "diag" and W <= WAVES_MAX_W:
         return "banded_fwd_waves"
     return "banded_fwd"
 

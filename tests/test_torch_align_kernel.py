@@ -82,8 +82,8 @@ def test_plain_matches_jnp_oracle(seed, LA):
 
 @pytest.mark.parametrize("W", [16400, 20000])
 def test_plain_matches_jnp_oracle_past_16384(W):
-    """Bands wider than 16384 lanes, which the card runs in tiles of
-    16384 lanes (ROADMAP.md fault 2): the plain version equals the jnp
+    """Bands wider than 16384 lanes, which the card runs on thread-block
+    clusters (ROADMAP.md fault 2): the plain version equals the jnp
     oracle on paths that cross lane 16384 by a run of LEFT moves."""
     LA = 64
     a, a_len, b, b_len, bm = wide_batch(LA, W, B=2)
@@ -297,13 +297,13 @@ def test_build_takes_every_source(tmp_path, monkeypatch):
     [
         (4096, 128, "diag"), (64, 128, "diag"), (512, 512, "diag"),
         (1024, 2048, "diag"), (128, 512, "rows"), (512, 2048, "rows"),
-        (1, 128, "rows"), (4096, 2049, "rows"), (8192, 8192, "rows"),
+        (1, 128, "rows"), (4096, 2049, "diag"), (8192, 8192, "rows"),
     ],
 )
 def test_forward_body_by_la_and_width(LA, W, body):
     """banded_fwd runs the anti-diagonal body where its ramp of W / 2
-    pair steps is at most the launch's LA and W <= DIAG_MAX_W, and the
-    row-scan body elsewhere."""
+    pair steps is at most the launch's LA and W <= DIAG_MAX_W (4096, the
+    body's limit), and the row-scan body elsewhere."""
     assert K.fwd_body(LA, W) == body
 
 
@@ -313,9 +313,11 @@ def test_forward_body_by_la_and_width(LA, W, body):
 )
 @pytest.mark.parametrize("waves", [1, 2, 4])
 def test_forward_kernel_route(LA, W, waves):
-    """banded_align_pairs launches banded_fwd_waves exactly where waves > 1
-    and fwd_body gives the anti-diagonal body, banded_fwd elsewhere."""
-    want = "banded_fwd_waves" if waves > 1 and K.fwd_body(LA, W) == "diag" else "banded_fwd"
+    """banded_align_pairs launches banded_fwd_waves exactly where waves > 1,
+    fwd_body gives the anti-diagonal body and W <= WAVES_MAX_W (2048),
+    banded_fwd elsewhere."""
+    waves_shape = K.fwd_body(LA, W) == "diag" and W <= K.WAVES_MAX_W
+    want = "banded_fwd_waves" if waves > 1 and waves_shape else "banded_fwd"
     assert K.fwd_kernel(LA, W, waves) == want
 
 

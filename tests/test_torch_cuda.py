@@ -17,9 +17,13 @@ import torch
 from shasta_tpu_torch.ops import align as A
 from shasta_tpu_torch.ops import align_kernel as K
 from shasta_tpu_torch.utils import synth
-from tests.torch_common import edge_batch, gap_batch, make_batch, mixed_batch, wide_batch
+from tests.torch_common import (
+    edge_batch, full_matrix_batch, gap_batch, make_batch, mixed_batch, wide_batch,
+)
 
 KW = dict(match=6, mismatch=-1, gap=-1)
+# The score sets of tests/test_torch_row_scan.py: dead-lane codes 3, 1, 3.
+SCORE_SETS = [KW, dict(match=6, mismatch=0, gap=-1), dict(match=6, mismatch=-1, gap=-2)]
 
 
 @pytest.fixture
@@ -50,14 +54,14 @@ def test_kernels_match_plain_on_card(card, LA, W):
     assert K.LAUNCHES["banded_tb"] > before["banded_tb"]
 
 
-def fwd_tb_errors(args, LA, W, LB=None):
+def fwd_tb_errors(args, LA, W, LB=None, scores=KW):
     """Each banded_fwd body that takes W against banded_fwd_plain (every
     dirs word of a processed row, best, bi, bd), banded_tb against
     banded_tb_plain on the plain dirs, and the fused output against
     banded_align_pairs_plain: the names of the outputs that differ.
     LB defaults to LA."""
     LB = LA if LB is None else LB
-    kw = dict(LA=LA, LB=LB, W=W, **KW)
+    kw = dict(LA=LA, LB=LB, W=W, **scores)
     pa, pal, pb, pbl, pbm = K.prepare_inputs(*args, LA=LA, LB=LB, W=W)
     pdirs, pbest, pbi, pbd = K.banded_fwd_plain(pa, pal, pb, pbl, pbm, **kw)
     rows = (torch.arange(K.n_words(LA), device=pa.device)[None, :] * 16) < pal[:, None]
@@ -91,21 +95,111 @@ def test_forward_bodies_match_plain_on_card(card, LA, W):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("W", [16400, 20480, 40000])
+@pytest.mark.parametrize("W", [16383, 16384, 16385, 16400, 20480, 40000])
 def test_row_scan_body_past_16384_matches_plain_on_card(card, W):
-    """Bands wider than ROWS_SMEM_MAX_W (16384): the row-scan body keeps
-    its rows in device memory and runs each row in tiles of 16384 lanes.
-    Its forward output, the traceback and the fused output equal the
-    plain version bit for bit on paths that cross a tile's edge
-    (tests/torch_common.py:wide_batch, LA 256, 4 pairs)."""
+    """Bands around and past 16384 lanes, whose live window (b of W + LA)
+    passes what one block holds: the row-scan body runs them on a
+    thread-block cluster. Its forward output, the traceback and the
+    fused output equal the plain version bit for bit on paths that cross
+    lane 16384 (tests/torch_common.py:wide_batch, LA 256, 4 pairs; up to
+    16384 lanes, where no path can cross it, make_batch with b of
+    W + LA)."""
     LA = 256
-    host = wide_batch(LA, W, B=4)
+    if W > 16384:
+        host = wide_batch(LA, W, B=4)
+    else:
+        host = make_batch(W, B=4, LA=LA, LB=W + LA, W=W)
     args = [torch.from_numpy(x).to(card) for x in host]
     assert K.fwd_body(LA, W) == "rows"
     before = dict(K.LAUNCHES)
     assert fwd_tb_errors(args, LA, W, LB=host[2].shape[1]) == []
     assert K.LAUNCHES["banded_fwd"] > before["banded_fwd"]
     assert K.LAUNCHES["banded_tb"] > before["banded_tb"]
+
+
+# Windows (LB + 2 columns) at each switch point of the row-scan body
+# (ops/align_kernel.py:rows_plan): the warp tier's K = 5, 9 (32 K +- 1),
+# the block tier's edge with the cluster's (2048 +- 1), the cluster's
+# step from 4 to 8 columns a thread (4096 +- 1), and its edge with the
+# strips (32768 +- 1).
+WINDOWS = [159, 160, 161, 287, 288, 289, 2047, 2048, 2049, 4095, 4096, 4097, 32767,
+           32768, 32769]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", WINDOWS)
+def test_row_scan_switch_points_match_plain_on_card(card, S):
+    """Full-matrix bands whose widest window is S columns (LA 24, LB =
+    S - 2, one pair with b_len = LB, one empty pair): the row-scan body,
+    the traceback and the fused output equal the plain version bit for
+    bit."""
+    LA, LB = 24, S - 2
+    W = LA + LB + 8
+    host = full_matrix_batch(LA, W, B=5, seed=S, LB=LB, empty=True)
+    assert K.rows_plan(LA, LB, W)["window"] == S
+    args = [torch.from_numpy(x).to(card) for x in host]
+    before = K.LAUNCHES["banded_fwd"]
+    assert fwd_tb_errors(args, LA, W, LB=LB) == []
+    assert K.LAUNCHES["banded_fwd"] > before
+
+
+# Launch shapes rows_plan does not pick at these sizes: one block of few
+# threads, clusters of 2 to 5 blocks, and strips of 128 and 256 columns
+# (the strip path, which rows_plan reaches only past 32768 columns).
+PLANS = [
+    dict(tier="block", cols_per_thread=8, threads=96, blocks=1),
+    dict(tier="cluster", cols_per_thread=4, threads=96, blocks=2),
+    dict(tier="cluster", cols_per_thread=8, threads=32, blocks=3),
+    dict(tier="cluster", cols_per_thread=4, threads=32, blocks=5),
+    dict(tier="cluster", cols_per_thread=4, threads=32, blocks=2),
+    dict(tier="block", cols_per_thread=4, threads=32, blocks=1),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", ["full", "sliding"])
+@pytest.mark.parametrize("k", range(len(PLANS)))
+def test_row_scan_plans_match_plain_on_card(card, k, batch):
+    """The row-scan body under each launch shape of PLANS equals the
+    plain version bit for bit: full-matrix bands of up to 602 columns
+    (LA 40, LB 600, an empty pair) and bands sliding along b (LA = LB =
+    256, W 64, a window of 258 columns), so that the last two shapes
+    sweep 3 to 5 strips."""
+    if batch == "full":
+        LA, LB = 40, 600
+        W = LA + LB + 8
+        host = full_matrix_batch(LA, W, B=6, seed=k, LB=LB, empty=True)
+    else:
+        LA = LB = 256
+        W = 64
+        host = make_batch(k, B=6, LA=LA, LB=LB, W=W)
+    plan = dict(PLANS[k], window=min(LB + 2, LA + W))
+    cap = plan["cols_per_thread"] * plan["threads"] * plan["blocks"]
+    plan["strips"] = -(-plan["window"] // cap)
+    kw = dict(LA=LA, LB=LB, W=W, **KW)
+    args = [torch.from_numpy(x).to(card) for x in host]
+    pa, pal, pb, pbl, pbm = K.prepare_inputs(*args, LA=LA, LB=LB, W=W)
+    dirs, best, bi, bd = K._banded_fwd_body("rows", pa, pal, pb, pbl, pbm, plan=plan, **kw)
+    pdirs, pbest, pbi, pbd = K.banded_fwd_plain(pa, pal, pb, pbl, pbm, **kw)
+    torch.cuda.synchronize()
+    rows = (torch.arange(K.n_words(LA), device=card)[None, :] * 16) < pal[:, None]
+    assert not bool(((dirs != pdirs) & rows[:, :, None]).any())
+    for x, y in ((best, pbest), (bi, pbi), (bd, pbd)):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scores", range(len(SCORE_SETS)))
+@pytest.mark.parametrize("S", [160, 514, 4098, 32769])
+def test_row_scan_score_sets_match_plain_on_card(card, S, scores):
+    """The three score sets (dead-lane codes 3, 1, 3) at a window of each
+    tier, with an empty pair: the row-scan body equals the plain
+    version."""
+    LA, LB = 40, S - 2
+    W = LA + LB + 8
+    host = full_matrix_batch(LA, W, B=6, seed=S + scores, LB=LB, empty=True)
+    args = [torch.from_numpy(x).to(card) for x in host]
+    assert fwd_tb_errors(args, LA, W, LB=LB, scores=SCORE_SETS[scores]) == []
 
 
 @pytest.mark.cuda

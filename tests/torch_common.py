@@ -143,6 +143,39 @@ def mixed_batch(LA=128, W=128, B=13, seed=21):
     return a, a_len, b, b_len, bm
 
 
+def full_matrix_batch(LA, W, B=6, seed=5, LB=None, alpha=40, empty=False):
+    """Phase-1-like pairs (ops/align.py, method 3's first phase): lengths
+    uniform in [LA / 4, LA] (b up to LB), the full-matrix band j - i in
+    [-la, lb] centred in W (band_min = -la - (W - la - lb - 1) // 2),
+    b a shifted copy of a with 10 % substitutions; one pair of length 1,
+    one with b_len = LB, and (empty=True) one with a_len 0."""
+    LB = LA if LB is None else LB
+    rng = np.random.default_rng(seed)
+    a = np.full((B, LA), -1, np.int32)
+    b = np.full((B, LB), -2, np.int32)
+    a_len = np.zeros(B, np.int32)
+    b_len = np.zeros(B, np.int32)
+    bm = np.zeros(B, np.int32)
+    for t in range(B):
+        la = int(rng.integers(max(1, LA // 4), LA + 1))
+        lb = int(rng.integers(max(1, LB // 4), LB + 1))
+        if t == 1:
+            la = lb = 1
+        if t == 2:
+            lb = LB
+        g = rng.integers(0, alpha, la + lb + 8).astype(np.int32)
+        s = int(rng.integers(0, 8))
+        a[t, :la] = g[:la]
+        b[t, :lb] = g[s : s + lb]
+        hit = rng.random(lb) < 0.1
+        b[t, :lb][hit] = rng.integers(0, alpha, int(hit.sum()))
+        a_len[t], b_len[t] = la, lb
+        bm[t] = -la - max(0, W - la - lb - 1) // 2
+    if empty:
+        a_len[3] = 0
+    return a, a_len, b, b_len, bm
+
+
 # tests/test_assembly_e2e.py:small_config as (section, key, value) overrides
 # of the configuration defaults.
 SMALL_CONF = [
@@ -243,16 +276,16 @@ def grouped_inputs(cases=GROUPED, seed=404):
 
 
 def wide_batch(LA=64, W=16400, B=2, seed=31):
-    """Pairs in a band wider than 16384 lanes, the widest whose rows the
-    row-scan body keeps in shared memory; past it the card runs each row
-    in tiles of 16384 lanes. b is long enough (LB = W + LA) that every
+    """Pairs in a band wider than 16384 lanes, whose live window (b of
+    W + LA) passes what one block holds, so the row-scan body runs them
+    on a thread-block cluster. b is long enough (LB = W + LA) that every
     lane of the band lies inside the matrix on some row. Each pair's a
     is a stretch of b with 10% substitutions, and b carries an insertion
     of L bases halfway along it, placed so that the path's lane jumps
     across a multiple of 16384 (a run of LEFT moves that the prefix max
-    carries from one tile to the next). Odd pairs end on b's last column
-    three rows before a's last row; the band starts at lane 0 or up to 2
-    lanes left of j - i = 0."""
+    carries from one block of the cluster to the next). Odd pairs end on
+    b's last column three rows before a's last row; the band starts at
+    lane 0 or up to 2 lanes left of j - i = 0."""
     LB = W + LA
     rng = np.random.default_rng(seed)
     a = np.full((B, LA), -1, np.int32)
