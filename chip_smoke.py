@@ -11,7 +11,11 @@ no result line):
    (any spill of the anti-diagonal body or of the row-scan body fails),
    and the int32 instructions the anti-diagonal body issues per band
    cell (its SASS) at 1, 2 and 4 pairs per warp, which must be no fewer
-   than the bound counts.
+   than the bound counts; the int32 instructions int32_chain's loop
+   (csrc/int32_peak.cu) issues per element and iteration; the card's
+   int32 ceiling measured with int32_chain on a tile every SM gets an
+   equal share of, against the data sheet's rate (the bounds divide by
+   the higher of the two).
 2. Kernels against their plain PyTorch version on the card, at the
    main path's (LA, W) classes, a phase-1 launch of 16,384 small pairs,
    odd widths, LA 1 and 17, phase-1-like full-matrix batches (LA 128 x
@@ -126,6 +130,16 @@ no result line):
    pass's host prefilter leaves FlagPalindromicReads.py no read to align
    there, as in phase 4's run), the kernels' device time and each
    driver's wall seconds.
+12. The bench entry point: python -m shasta_tpu_torch.bench --reps 3 at
+   bench.py's workload in a process of its own: its last stdout line has
+   bench.py's 12 keys, finite values, value and the Gcells rates above 0
+   and kernel_pct_peak at 105 or below; its launches (stderr) are the
+   "bench" path. Then in this process: the roofline batch through
+   banded_align_pairs equal to the plain version; int32_chain equal to
+   its plain version modulo 2**32 (K 256 on the bench's tile; K 1, 2, 5
+   over the whole int32 range), timed; two reps of the bench's
+   align_candidates and one under a one-rank NCCL mesh give equal
+   AlignmentStores; 64 kept pairs re-aligned with the plain version.
 
 The spot checks of phases 4, 6 and 8 (128 kept pairs re-aligned with
 the plain version on the card, from the run directory's stored stages)
@@ -137,9 +151,10 @@ The grades record accuracy and gate nothing: no floor has been measured.
 
 Each phase's seconds print. The line before the last is
 {"kernels": [...]}, each kernel's launches summed over the paths that
-ran it (``paths``: the runs of phases 4 to 11, the mesh's ranks, the
-explorer and the stage drivers included); the last line is {"ok": true,
-"device": {...}}.
+ran it (``paths``: the runs of phases 4 to 12, the mesh's ranks, the
+explorer, the stage drivers and the bench included; int32_chain, the
+bench's int32 ceiling, on the bench's path only); the last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -210,26 +225,16 @@ SHAPES = [
     (512, 20480, 4, "wide"), (256, 40000, 4, "wide"), (24576, 20480, 2, "sliding"),
 ]
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-INT32_LANES_PER_SM = 64  # Hopper SM: 4 partitions x 16 INT32 units
+# The card's int32 rates (ops/s), set by phase 1: "data_sheet", the data
+# sheet's 64 lanes per SM at the SM clock (utils/peak.py), and
+# "measured", int32_chain's ceiling on a tile every SM gets an equal share
+# of. bound_ms divides by the higher of the two.
+INT32_RATES = {}
 TB_OPS_PER_ROW = 12  # banded_tb_kernel's int32 work per walked row
-# SASS opcodes left out of the count of issued int32 operations: memory,
-# control and shuffles (uniform-datapath U* opcodes are left out too).
-NOT_INT_OPS = {
-    "SHFL", "BRA", "BSSY", "BSYNC", "STG", "LDG", "LDC", "LDS", "STS", "BAR",
-    "NOP", "EXIT", "WARPSYNC",
-}
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def smi(query: str) -> str:
-    out = subprocess.run(
-        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    )
-    return out.stdout.strip().splitlines()[0]
 
 
 # ---------------------------------------------------------------------------
@@ -242,9 +247,10 @@ def phase_device_and_build():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
     from shasta_tpu_torch import native
     from shasta_tpu_torch.ops import align_kernel as K
+    from shasta_tpu_torch.utils import peak
 
     log(f"device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
-    log(f"nvidia-smi: {smi('name,power.limit')}")
+    log(f"nvidia-smi: {peak.nvidia_smi('name,power.limit')}")
     log(
         f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}"
@@ -265,7 +271,10 @@ def phase_device_and_build():
     for src, report in K.PTXAS_REPORT.items():
         fn = None
         for ln in report.splitlines():
-            m = re.search(r"Compiling entry function '.*?(banded_[a-z_]+kernel)(\w*)'", ln)
+            m = re.search(
+                r"Compiling entry function '.*?(banded_[a-z_]+kernel|int32_chain_kernel)(\w*)'",
+                ln,
+            )
             if m:
                 fn = m.group(1) + "<" + ",".join(re.findall(r"L[ib](\d+)E", m.group(2))) + ">"
             elif fn and ("registers" in ln or "spill" in ln):
@@ -297,8 +306,46 @@ def phase_device_and_build():
         raise AssertionError(f"a forward body spills registers: {spilled}")
     if not any("banded_align.cu" in k for k in ptxas):
         raise AssertionError("no ptxas report of the row-scan body's kernels")
-    sm_clock_mhz = float(smi("clocks.max.sm").split()[0])
-    return sm_clock_mhz, {"sass": sass, "ptxas": ptxas}
+    chain_sass = peak.int32_chain_sass()
+    log(
+        f"sass int32_chain_kernel: {chain_sass['per_iteration']} int32 instructions issued "
+        f"per element and iteration against {peak.OPS_PER_ITERATION} source operations "
+        f"(loop unrolled {chain_sass['unrolled']}x: {chain_sass['by_opcode']})"
+    )
+    sm_clock_mhz = float(peak.nvidia_smi("clocks.max.sm").split()[0])
+    ceiling = int32_ceiling(sm_clock_mhz)
+    return sm_clock_mhz, {"sass": sass, "ptxas": ptxas, "int32_chain_sass": chain_sass,
+                          "int32_ceiling": ceiling}
+
+
+def int32_ceiling(sm_clock_mhz):
+    """The card's int32 rate measured with int32_chain (bench.py's chain),
+    on a tile of SMs x 2048 x 4 elements (one element a thread: four
+    full-occupancy waves, an equal share for every SM; bench.py's
+    (1024, 512) tile gives each SM sub-partition 31.03 warps, so the
+    slowest run 32), K 8448 against K 256, best of 3, against the data
+    sheet's rate; sets INT32_RATES."""
+    from shasta_tpu_torch import bench as PB
+    from shasta_tpu_torch.utils import peak
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    n = sms * 2048 * 4
+    rep = PB.int32_peak_prepare(
+        torch.device("cuda"),
+        np.random.default_rng(23).integers(-1000, 1000, n).astype(np.int32),
+    )
+    measured = max(rep() for _ in range(3))
+    sheet = peak.data_sheet_int32_ops(sm_clock_mhz, sms)
+    INT32_RATES.update(data_sheet=sheet, measured=measured)
+    ratio = measured / sheet
+    log(
+        f"int32 ceiling: {measured / 1e9} Gops/s on {n} elements ({sms} SMs x 2048 x 4) "
+        f"against the data sheet's {sheet / 1e9} Gops/s "
+        f"({sms} x {peak.INT32_LANES_PER_SM} x {sm_clock_mhz:.0f} MHz): ratio {ratio}; "
+        "the bounds divide by the higher of the two"
+    )
+    return {"measured_ops_per_s": measured, "data_sheet_ops_per_s": sheet, "ratio": ratio,
+            "elements": n}
 
 
 def diag_sass_ops_per_cell(P):
@@ -307,21 +354,10 @@ def diag_sass_ops_per_cell(P):
     of the built library: its pair-step loop (the backward branch around
     the input slide's SHFL.IDX; 4 cells per thread and pair), without the
     regions a forward branch inside it skips (the 16-row flush stores)
-    and without the NOT_INT_OPS and U* opcodes."""
-    from shasta_tpu_torch.ops import align_kernel as K
+    and without the opcodes peak.int32_op_counts leaves out."""
+    from shasta_tpu_torch.utils import peak
 
-    tool = os.path.join(os.path.dirname(K._nvcc()), "cuobjdump")
-    sass = subprocess.run(
-        [tool, "-sass", K._SO], capture_output=True, text=True, check=True
-    ).stdout
-    fn = next(
-        f for f in sass.split("Function : ")[1:]
-        if f"banded_fwd_diag_kernelILi4ELb0ELi{P}E" in f.split("\n", 1)[0]
-    )
-    ins = [
-        (int(a, 16), re.sub(r"^@!?U?P[T\d]+\s+", "", x.strip()))
-        for a, x in re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", fn)
-    ]
+    ins = peak.kernel_sass(f"banded_fwd_diag_kernelILi4ELb0ELi{P}E")
     branches = [
         (a, int(m.group(1), 16)) for a, x in ins
         if (m := re.search(r"BRA (?:P\d, )?0x([0-9a-f]+)", x))
@@ -333,12 +369,11 @@ def diag_sass_ops_per_cell(P):
     skipped = {
         b for a, t in branches if lo <= a < t <= hi for b, _ in ins if a < b < t
     }
-    ops = [
-        x.split()[0].split(".")[0] for a, x in ins if lo <= a <= hi and a not in skipped
-    ]
-    ops = [o for o in ops if o not in NOT_INT_OPS and not o.startswith("U")]
-    by_opcode = {o: ops.count(o) for o in sorted(set(ops), key=ops.count, reverse=True)}
-    return {"int_ops": len(ops), "per_cell": len(ops) / (4 * P), "by_opcode": by_opcode}
+    by_opcode = peak.int32_op_counts(
+        x for a, x in ins if lo <= a <= hi and a not in skipped
+    )
+    n = sum(by_opcode.values())
+    return {"int_ops": n, "per_cell": n / (4 * P), "by_opcode": by_opcode}
 
 
 # ---------------------------------------------------------------------------
@@ -544,12 +579,15 @@ def cuda_ms(fn, reps):
 
 def bound_ms(ops, nbytes, sm_clock_mhz):
     """(bound, what bounds it, operations time, bytes time), all ms: int32
-    operations over the card's int32 issue rate at the SM clock, and
+    operations over the card's int32 rate, the higher of the data sheet's
+    at the SM clock and the ceiling phase 1 measured (INT32_RATES), and
     bytes over the HBM rate."""
-    peak_ops = torch.cuda.get_device_properties(0).multi_processor_count * (
-        INT32_LANES_PER_SM * sm_clock_mhz * 1e6
+    from shasta_tpu_torch.utils import peak
+
+    sheet = peak.data_sheet_int32_ops(
+        sm_clock_mhz, torch.cuda.get_device_properties(0).multi_processor_count
     )
-    t_ops = ops / peak_ops * 1e3
+    t_ops = ops / max(sheet, INT32_RATES.get("measured", 0.0)) * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     by = "operations" if t_ops >= t_bytes else "bytes"
     return max(t_ops, t_bytes), by, t_ops, t_bytes
@@ -820,9 +858,11 @@ def stage_hashes(run_dir):
 
 def reset_launches():
     from shasta_tpu_torch.ops import align_kernel as K
+    from shasta_tpu_torch.utils import peak
 
-    for k in K.LAUNCHES:
-        K.LAUNCHES[k] = 0
+    for counts in (K.LAUNCHES, peak.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 @contextlib.contextmanager
@@ -1896,7 +1936,7 @@ def _spot_check_task(label, run_dir, cfg):
     spot_check(
         label, MarkerStore.from_arrays(store.load_stage("Markers")),
         KmerTable.from_arrays(store.load_stage("Kmers")),
-        AL.AlignmentStore.from_arrays(store.load_stage("Alignments")), cfg,
+        AL.AlignmentStore.from_arrays(store.load_stage("Alignments")), _align_params(cfg),
         say=lines.append,
     )
     return lines
@@ -1928,17 +1968,17 @@ def spot_checks_stop():
         _SPOT["pool"] = None
 
 
-def spot_check(label, markers, kmer_table, aligned, cfg, say=log):
-    """127 seeded kept pairs plus the longest of a run's Alignments,
-    re-aligned with the plain version on the card: identical ordinals.
-    ``say`` takes the lines it reports."""
+def spot_check(label, markers, kmer_table, aligned, params, say=log, n=128):
+    """n - 1 seeded kept pairs plus the longest of a run's Alignments,
+    re-aligned with the plain version on the card under AlignParams
+    ``params``: identical ordinals. ``say`` takes the lines it reports."""
     from shasta_tpu_torch.ops import align as AL
     from shasta_tpu_torch.ops import align_kernel as K
 
     rng = np.random.default_rng(7)
     longest = int(np.argmax(aligned.n_markers0 + aligned.n_markers1))
     pick = np.unique(np.concatenate([
-        rng.choice(aligned.count, min(127, aligned.count), replace=False), [longest]
+        rng.choice(aligned.count, min(n - 1, aligned.count), replace=False), [longest]
     ]))
     ts = time.perf_counter()
     if kmer_table.k not in _DS_TABLES:
@@ -1949,7 +1989,7 @@ def spot_check(label, markers, kmer_table, aligned, cfg, say=log):
     with plain_kernels():
         sub = AL.align_candidates(
             markers, aligned.read_id0[pick], aligned.read_id1[pick],
-            aligned.same_strand[pick], _align_params(cfg), ds_table, device="cuda",
+            aligned.same_strand[pick], params, ds_table, device="cuda",
         )
     if sub.count != pick.shape[0]:
         raise AssertionError(f"{label} spot check kept {sub.count} of {pick.shape[0]}")
@@ -2527,6 +2567,132 @@ def phase_scripts_real_size(real, sm_clock_mhz):
 
 
 # ---------------------------------------------------------------------------
+# Phase 12: the bench entry point
+# ---------------------------------------------------------------------------
+
+# bench.py's JSON line, in its order (bench.py:303-320).
+BENCH_KEYS = [
+    "metric", "value", "unit", "vs_baseline", "mesh1_alignments_per_sec",
+    "mesh1_host_ratio", "kernel_gcells_per_sec", "kernel_chunked_gcells_per_sec",
+    "kernel_pairs_per_sec", "kernel_ops_per_cell", "vpu_peak_gops", "kernel_pct_peak",
+]
+# The bench's timed reps here (its default is bench.py's 12).
+BENCH_REPS = 3
+
+
+def phase_bench(sm_clock_mhz):
+    """Phase 12: ``python -m shasta_tpu_torch.bench --reps 3`` at bench.py's
+    workload as a process of its own (its one-rank NCCL world lives
+    there), its last stdout line held to bench.py's 12 keys, finite
+    values, value and the Gcells rates above 0 and kernel_pct_peak at 105
+    or below; its launches (stderr) are the "bench" path. Then, in this
+    process: the roofline batch through banded_align_pairs equal to the
+    plain version bit for bit; int32_chain against its plain version
+    (check_int32_chain); two reps of the bench's align_candidates and a
+    rep under a one-rank mesh giving equal AlignmentStores; 64 of the
+    kept pairs re-aligned with the plain version (spot_check)."""
+    import torch.distributed as dist
+
+    from shasta_tpu_torch import bench as PB
+    from shasta_tpu_torch.ops import align_kernel as K
+    from shasta_tpu_torch.ops.align import AlignParams
+    from shasta_tpu_torch.parallel.context import use_mesh
+    from shasta_tpu_torch.parallel.mesh import make_mesh
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "shasta_tpu_torch.bench", "--reps", str(BENCH_REPS)],
+        cwd=ROOT, capture_output=True, text=True, timeout=600,
+    )
+    bench_s = time.perf_counter() - t0
+    for ln in proc.stderr.splitlines():
+        if ln.startswith("bench: "):
+            log(ln)
+    if proc.returncode != 0:
+        raise AssertionError(f"the bench exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+    last = proc.stdout.strip().splitlines()[-1]
+    line = json.loads(last)
+    if list(line) != BENCH_KEYS:
+        raise AssertionError(f"the bench's line has keys {list(line)}")
+    nums = [v for k, v in line.items() if k not in ("metric", "unit")]
+    if not all(isinstance(v, (int, float)) and np.isfinite(v) for v in nums):
+        raise AssertionError(f"the bench's line has a value that is not finite: {last}")
+    if min(line["value"], line["kernel_gcells_per_sec"],
+           line["kernel_chunked_gcells_per_sec"]) <= 0 or line["kernel_pct_peak"] > 105:
+        raise AssertionError(f"the bench's line is out of range: {last}")
+    launches = json.loads(re.search(r"^bench: launches (\{.*\})$", proc.stderr, re.M).group(1))
+    if not (launches["banded_fwd"] and launches["banded_tb"] and launches["int32_chain"]):
+        raise AssertionError(f"the bench did not launch every kernel of its path: {launches}")
+    log(f"bench: {bench_s:.1f}s, exit 0, line {last}")
+
+    dev = torch.device("cuda")
+    args = [torch.from_numpy(x).to(dev) for x in PB.roofline_batch()]
+    kw = dict(LA=args[0].shape[1], LB=args[2].shape[1], W=PB.ROOFLINE_W, **PB.SCORES)
+    if not torch.equal(K.banded_align_pairs(*args, **kw), K.banded_align_pairs_plain(*args, **kw)):
+        raise AssertionError("bench: the roofline batch differs from the plain version")
+    log(f"bench: the roofline batch ({args[0].shape[0]} pairs, LA {kw['LA']}, W {kw['W']}) "
+        "through banded_align_pairs equal to the plain version")
+    chain = check_int32_chain(sm_clock_mhz)
+
+    t0 = time.perf_counter()
+    markers, kt, cand = PB.build_workload()
+    run = PB.workload_runner(markers, kt, cand, dev)
+    first, second = run(), run()
+    created = not dist.is_initialized()
+    try:
+        with use_mesh(make_mesh(1, device=dev)):
+            on_mesh = run()
+    finally:
+        if created and dist.is_initialized():
+            dist.destroy_process_group()
+    ref = first.arrays()
+    for name, other in (("a second rep", second), ("the one-rank mesh", on_mesh)):
+        got = other.arrays()
+        if sorted(got) != sorted(ref) or not all(np.array_equal(got[k], v) for k, v in ref.items()):
+            raise AssertionError(f"bench: {name}'s AlignmentStore differs from the first rep's")
+    log(f"bench: {cand.count} candidates, {first.count} kept; two reps and a one-rank NCCL "
+        f"mesh rep give equal AlignmentStores ({time.perf_counter() - t0:.1f}s)")
+    spot_check("bench", markers, kt, first, AlignParams(**PB.ALIGN), n=64)
+    return {"line": line, "launches": launches, "seconds": bench_s, "int32_chain": chain}
+
+
+def check_int32_chain(sm_clock_mhz):
+    """int32_chain against int32_chain_plain on the card, modulo 2**32: at
+    K 256 on the bench's tile (where the chain reaches a fixed point within
+    5 iterations) and at K 1, 2 and 5 on 1,000,003 values over the whole
+    int32 range (a ragged last block). Times both at K 256 on the bench's
+    tile, with the bound from the data sheet's rate."""
+    from shasta_tpu_torch import bench as PB
+    from shasta_tpu_torch.utils import peak
+
+    tile = torch.from_numpy(PB.ceiling_tile()).cuda()
+    full = torch.from_numpy(
+        np.random.default_rng(24).integers(-(2**31), 2**31, 1_000_003).astype(np.int32)
+    ).cuda()
+    errs = {}
+    for name, x, K in (("tile", tile, 256), ("full", full, 1), ("full", full, 2),
+                       ("full", full, 5)):
+        d = peak.int32_chain(x, K).long() - peak.int32_chain_plain(x, K).long()
+        errs[f"{name} K {K}"] = int(((d + 2**31) % 2**32 - 2**31).abs().max())
+    if any(errs.values()):
+        raise AssertionError(f"int32_chain != plain (modulo 2**32): {errs}")
+    K = 256
+    ms = cuda_ms(lambda: peak.int32_chain(tile, K), 20)
+    plain_ms = cuda_ms(lambda: peak.int32_chain_plain(tile, K), 1)
+    ops = tile.numel() * peak.OPS_PER_ITERATION * K
+    sheet = peak.data_sheet_int32_ops(
+        sm_clock_mhz, torch.cuda.get_device_properties(0).multi_processor_count
+    )
+    t_ops, t_bytes = ops / sheet * 1e3, 8 * tile.numel() / HBM_BYTES_PER_S * 1e3
+    bound, by = max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+    log(f"int32_chain: equal to the plain version modulo 2**32 ({', '.join(errs)}); at K {K} "
+        f"on the bench's (1024, 512) tile {ms:.4f} ms (plain {plain_ms:.1f} ms; bound "
+        f"{bound:.4f} ms by {by} at the data sheet's rate, {bound / ms:.1%})")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "max_abs_err": max(errs.values()), "K": K, "tile": list(tile.shape)}
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -2565,10 +2731,13 @@ def main() -> int:
             # Phase 11 rewrites stages of the runs the spot checks read.
             out["scripts_golden"] = run(11, phase_scripts_golden, work)
             out["scripts_5mb"] = run(11, phase_scripts_real_size, real, sm_clock)
+        out["bench"] = run(12, phase_bench, sm_clock)
     finally:
         spot_checks_stop()
     log("phase seconds: " + ", ".join(f"{n} {t:.1f}" for n, t in sorted(seconds.items())))
-    card = smi("name,power.limit")
+    from shasta_tpu_torch.utils.peak import nvidia_smi
+
+    card = nvidia_smi("name,power.limit")
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(
@@ -2597,9 +2766,9 @@ def kernel_line(kernels, real, out):
     under waves 2 (phase 5), method 4 at a real size (phase 7), the
     mode-3 real-size run (phase 8), the mesh's runs (phase 9: the
     one-rank NCCL checks, and the sum over the two gloo ranks of the
-    golden and 5 Mb runs), the explorer's pages (phase 10) and the stage
+    golden and 5 Mb runs), the explorer's pages (phase 10), the stage
     drivers (phase 11: the card's runs on the golden run, and the 5 Mb
-    run's).
+    run's) and the bench (phase 12, its own process's counts).
     banded_fwd's entry is its row-scan body's (csrc/banded_align.cu):
     phase 2's times at the shape of the row-scan body's class that took
     the most of its time on the mode-0 run (a phase-1-like batch where
@@ -2620,10 +2789,11 @@ def kernel_line(kernels, real, out):
                      for k in out["explorer"]["golden"]["launches"]},
         "scripts-golden": out["scripts_golden"]["launches"],
         "scripts-5mb": out["scripts_5mb"]["launches"],
+        "bench": out["bench"]["launches"],
     }
 
     def launched(name):
-        ran = [p for p, launches in paths.items() if launches[name]]
+        ran = [p for p, launches in paths.items() if launches.get(name)]
         return {"launches": sum(paths[p][name] for p in ran), "paths": ran}
 
     def by_body(shapes):
@@ -2674,6 +2844,7 @@ def kernel_line(kernels, real, out):
         key=lambda k: (waves_fwd.get(k[:2], 0.0), k[0] * k[1]),
     )
     rw = kernels[rep_w]
+    ic = out["bench"]["int32_chain"]
     csrc = "shasta_tpu_torch/csrc/"
     return {"kernels": [
         {"name": "banded_fwd", "route": "cuda", "source": csrc + "banded_align.cu",
@@ -2706,6 +2877,12 @@ def kernel_line(kernels, real, out):
          "library_ms": None,
          "shape": {"LA": rep_w[0], "W": rep_w[1], "B": rw["B"], "waves": 2},
          "waves4_ms": rw["waves_ms"][4], "banded_fwd_ms": rw["fwd_ms"]},
+        {"name": "int32_chain", "route": "cuda", "source": csrc + "int32_peak.cu",
+         "replaces": "bench.py:143 (vpu_peak_prepare, an XLA-fused jnp chain; no Pallas)",
+         **launched("int32_chain"), "max_abs_err": ic["max_abs_err"],
+         "ms": ic["ms"], "plain_ms": ic["plain_ms"], "bound_ms": ic["bound_ms"],
+         "bound_by": ic["bound_by"], "library_ms": None,
+         "shape": {"tile": ic["tile"], "K": ic["K"]}},
     ]}
 
 

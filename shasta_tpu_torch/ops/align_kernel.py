@@ -246,6 +246,9 @@ def build_kernels(force: bool = False) -> float:
             # banded_fwd_waves_launch takes waves after the scores.
             lib.banded_fwd_waves_launch.argtypes = [vp] * 5 + [ci] * 8 + [vp] * 5
             lib.banded_fwd_waves_launch.restype = ci
+            # utils/peak.py's int32 ceiling (csrc/int32_peak.cu).
+            lib.int32_chain_launch.argtypes = [vp, ci, ci, vp, vp]
+            lib.int32_chain_launch.restype = ci
             _lib = lib
         return time.perf_counter() - t0
 

@@ -16,7 +16,7 @@ import torch
 
 from shasta_tpu_torch.ops import align as A
 from shasta_tpu_torch.ops import align_kernel as K
-from shasta_tpu_torch.utils import synth
+from shasta_tpu_torch.utils import peak, synth
 from tests.torch_common import (
     edge_batch, full_matrix_batch, gap_batch, make_batch, mixed_batch, wide_batch,
 )
@@ -393,3 +393,25 @@ def test_two_gloo_ranks_share_the_card(card, tmp_path):
     assert outs[0][1]["alignmentCount"] == 1992 and outs[1][1] is None
     assert TR.golden_mismatches(run_dir, 0) == []
     assert TR.golden_mismatches(str(tmp_path / "run" / ".process1"), 0) == []
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [0, 1, 2, 5, 256])
+@pytest.mark.parametrize("values", ["bench", "full"])
+def test_int32_chain_matches_plain_on_card(card, K, values):
+    """csrc/int32_peak.cu against int32_chain_plain on the card, modulo
+    2**32: bench.py's (1024, 512) tile and value range, and 100,003 values
+    over the whole int32 range (a ragged last block); it launched."""
+    rng = np.random.default_rng(K)
+    if values == "bench":
+        x = rng.integers(-1000, 1000, (1024, 512)).astype(np.int32)
+    else:
+        x = rng.integers(-(2**31), 2**31, 100_003).astype(np.int32)
+    t = torch.from_numpy(x).to(card)
+    before = peak.LAUNCHES["int32_chain"]
+    got = peak.int32_chain(t, K)
+    ref = peak.int32_chain_plain(t, K)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32 and got.shape == t.shape
+    assert torch.equal((got.long() - ref.long()) % 2**32, torch.zeros_like(got, dtype=torch.long))
+    assert peak.LAUNCHES["int32_chain"] == before + 1

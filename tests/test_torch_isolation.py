@@ -76,9 +76,13 @@ out = io.StringIO()
 with contextlib.redirect_stdout(out):
     rc = _common.load("ComputeAlignments").main([os.path.join(d, "run"), "--device", "cpu"])
 assert rc == 0 and out.getvalue() == "Computed 1992 alignments.\n", (rc, out.getvalue())
+# The bench entry point is among the modules imported above; it imports
+# neither the repository root's bench.py nor the tests.
+assert "shasta_tpu_torch.bench" in sys.modules
 bad = sorted(
     k for k in sys.modules
-    if k in ("jax", "shasta_tpu") or k.startswith(("jax.", "jaxlib", "shasta_tpu."))
+    if k in ("jax", "shasta_tpu", "bench", "tests")
+    or k.startswith(("jax.", "jaxlib", "shasta_tpu.", "tests."))
 )
 print("LEAKED", bad)
 """
@@ -103,19 +107,21 @@ def test_package_runs_without_jax_or_reference(tmp_path):
 
 
 _IMPORT = re.compile(
-    r"^\s*(?:import|from)\s+(?:jax|jaxlib|shasta_tpu)(?:\.|\s|$)", re.M
+    r"^\s*(?:import|from)\s+(?:jax|jaxlib|shasta_tpu|tests|bench)(?:\.|\s|$)", re.M
 )
 
 
 def test_sources_import_neither_jax_nor_reference():
-    """No `import jax` and no import of shasta_tpu in the port's sources,
-    its stage drivers (shasta_tpu_torch/scripts) included, or in
-    chip_smoke.py (shasta_tpu_torch itself does not match)."""
+    """No `import jax`, no import of shasta_tpu, of the tests or of the
+    repository root's bench.py in the port's sources, its stage drivers
+    (shasta_tpu_torch/scripts) and its bench included, or in chip_smoke.py
+    (shasta_tpu_torch itself does not match)."""
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for dirpath, _dirs, names in os.walk(PKG):
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
     assert len(files) > 20
     assert os.path.join(PKG, "scripts", "ComputeAlignments.py") in files
+    assert os.path.join(PKG, "bench.py") in files
     for path in files:
         with open(path) as f:
             src = f.read()
