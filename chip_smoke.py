@@ -12,10 +12,13 @@ no result line):
    and the int32 instructions the anti-diagonal body issues per band
    cell (its SASS) at 1, 2 and 4 pairs per warp, which must be no fewer
    than the bound counts; the int32 instructions int32_chain's loop
-   (csrc/int32_peak.cu) issues per element and iteration; the card's
-   int32 ceiling measured with int32_chain on a tile every SM gets an
-   equal share of, against the data sheet's rate (the bounds divide by
-   the higher of the two).
+   (csrc/int32_peak.cu) issues per element and iteration, which must be
+   no fewer than the 8 operations its rate counts; the card's int32
+   ceiling measured with int32_chain on a tile every SM gets an equal
+   share of, against the data sheet's rate (64 lanes an SM) and the
+   issue limit (128 lanes an SM, one warp instruction a cycle per
+   sub-partition), which the bounds divide by: the ceiling must not
+   pass it.
 2. Kernels against their plain PyTorch version on the card, at the
    main path's (LA, W) classes, a phase-1 launch of 16,384 small pairs,
    odd widths, LA 1 and 17, phase-1-like full-matrix batches (LA 128 x
@@ -139,7 +142,7 @@ no result line):
    its plain version modulo 2**32 (K 256 on the bench's tile; K 1, 2, 5
    over the whole int32 range), timed; two reps of the bench's
    align_candidates and one under a one-rank NCCL mesh give equal
-   AlignmentStores; 64 kept pairs re-aligned with the plain version.
+   AlignmentStores; 128 kept pairs re-aligned with the plain version.
 
 The spot checks of phases 4, 6 and 8 (128 kept pairs re-aligned with
 the plain version on the card, from the run directory's stored stages)
@@ -225,11 +228,6 @@ SHAPES = [
     (512, 20480, 4, "wide"), (256, 40000, 4, "wide"), (24576, 20480, 2, "sliding"),
 ]
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-# The card's int32 rates (ops/s), set by phase 1: "data_sheet", the data
-# sheet's 64 lanes per SM at the SM clock (utils/peak.py), and
-# "measured", int32_chain's ceiling on a tile every SM gets an equal share
-# of. bound_ms divides by the higher of the two.
-INT32_RATES = {}
 TB_OPS_PER_ROW = 12  # banded_tb_kernel's int32 work per walked row
 
 
@@ -306,12 +304,17 @@ def phase_device_and_build():
         raise AssertionError(f"a forward body spills registers: {spilled}")
     if not any("banded_align.cu" in k for k in ptxas):
         raise AssertionError("no ptxas report of the row-scan body's kernels")
-    chain_sass = peak.int32_chain_sass()
+    chain_sass = int32_chain_sass()
     log(
         f"sass int32_chain_kernel: {chain_sass['per_iteration']} int32 instructions issued "
         f"per element and iteration against {peak.OPS_PER_ITERATION} source operations "
         f"(loop unrolled {chain_sass['unrolled']}x: {chain_sass['by_opcode']})"
     )
+    if chain_sass["per_iteration"] < peak.OPS_PER_ITERATION:
+        raise AssertionError(
+            "int32_chain issues fewer int32 instructions per iteration than the operations "
+            "its rate counts: its bound is not a lower bound"
+        )
     sm_clock_mhz = float(peak.nvidia_smi("clocks.max.sm").split()[0])
     ceiling = int32_ceiling(sm_clock_mhz)
     return sm_clock_mhz, {"sass": sass, "ptxas": ptxas, "int32_chain_sass": chain_sass,
@@ -324,28 +327,95 @@ def int32_ceiling(sm_clock_mhz):
     full-occupancy waves, an equal share for every SM; bench.py's
     (1024, 512) tile gives each SM sub-partition 31.03 warps, so the
     slowest run 32), K 8448 against K 256, best of 3, against the data
-    sheet's rate; sets INT32_RATES."""
-    from shasta_tpu_torch import bench as PB
+    sheet's rate and the issue limit. Fails when it passes the issue
+    limit, which bound_ms divides by."""
     from shasta_tpu_torch.utils import peak
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     n = sms * 2048 * 4
-    rep = PB.int32_peak_prepare(
-        torch.device("cuda"),
-        np.random.default_rng(23).integers(-1000, 1000, n).astype(np.int32),
-    )
-    measured = max(rep() for _ in range(3))
+    x = torch.from_numpy(
+        np.random.default_rng(23).integers(-1000, 1000, n).astype(np.int32)
+    ).cuda()
+    K0, K1 = 256, 8448
+
+    def rate():
+        ms = [cuda_ms(lambda K=K: peak.int32_chain(x, K), 1) for K in (K0, K1)]
+        return n * peak.OPS_PER_ITERATION * (K1 - K0) / ((ms[1] - ms[0]) / 1e3)
+
+    measured = max(rate() for _ in range(3))
     sheet = peak.data_sheet_int32_ops(sm_clock_mhz, sms)
-    INT32_RATES.update(data_sheet=sheet, measured=measured)
-    ratio = measured / sheet
+    issue = peak.issue_limit_ops(sm_clock_mhz, sms)
     log(
-        f"int32 ceiling: {measured / 1e9} Gops/s on {n} elements ({sms} SMs x 2048 x 4) "
-        f"against the data sheet's {sheet / 1e9} Gops/s "
-        f"({sms} x {peak.INT32_LANES_PER_SM} x {sm_clock_mhz:.0f} MHz): ratio {ratio}; "
-        "the bounds divide by the higher of the two"
+        f"int32 ceiling: {measured / 1e9} Gops/s on {n} elements ({sms} SMs x 2048 x 4): "
+        f"{measured / sheet} times the data sheet's {sheet / 1e9} Gops/s "
+        f"({sms} x {peak.INT32_LANES_PER_SM} x {sm_clock_mhz:.0f} MHz), {measured / issue} "
+        f"of the issue limit's {issue / 1e9} ({sms} x {peak.ISSUE_LANES_PER_SM} x "
+        f"{sm_clock_mhz:.0f} MHz), which the bounds divide by"
     )
-    return {"measured_ops_per_s": measured, "data_sheet_ops_per_s": sheet, "ratio": ratio,
-            "elements": n}
+    if measured > issue:
+        raise AssertionError("the int32 ceiling passes the issue limit: no bound is a lower bound")
+    return {"measured_ops_per_s": measured, "data_sheet_ops_per_s": sheet,
+            "issue_limit_ops_per_s": issue, "ratio": measured / sheet,
+            "share_of_issue_limit": measured / issue, "elements": n}
+
+
+# SASS opcodes left out of a count of issued int32 operations: memory,
+# control and shuffles (uniform-datapath U* opcodes are left out too).
+NOT_INT_OPS = {
+    "SHFL", "BRA", "BSSY", "BSYNC", "STG", "LDG", "LDC", "LDS", "STS", "BAR",
+    "NOP", "EXIT", "WARPSYNC",
+}
+
+
+def kernel_sass(name):
+    """(address, instruction) of the first function of the built library
+    whose mangled name holds ``name``, from cuobjdump -sass, predicates
+    stripped."""
+    from shasta_tpu_torch.ops import align_kernel as K
+
+    tool = os.path.join(os.path.dirname(K._nvcc()), "cuobjdump")
+    sass = subprocess.run(
+        [tool, "-sass", K.LIBRARY_PATH], capture_output=True, text=True, check=True
+    ).stdout
+    fn = next(f for f in sass.split("Function : ")[1:] if name in f.split("\n", 1)[0])
+    return [
+        (int(a, 16), re.sub(r"^@!?U?P[T\d]+\s+", "", x.strip()))
+        for a, x in re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", fn)
+    ]
+
+
+def int32_op_counts(instructions):
+    """The count of each int32 arithmetic opcode among ``instructions``
+    (SASS text), most frequent first; NOT_INT_OPS and U* opcodes left out."""
+    ops = [x.split()[0].split(".")[0] for x in instructions]
+    ops = [o for o in ops if o not in NOT_INT_OPS and not o.startswith("U")]
+    return {o: ops.count(o) for o in sorted(set(ops), key=ops.count, reverse=True)}
+
+
+def int32_chain_sass():
+    """The int32 instructions int32_chain_kernel issues per element and
+    iteration: its unrolled loop (the backward branch whose body holds
+    the most copies of the chain's xor constant), by int32_op_counts,
+    divided by those copies."""
+    ins = kernel_sass("int32_chain_kernel")
+    branches = [
+        (int(m.group(1), 16), a) for a, x in ins
+        if (m := re.search(r"BRA(?:\.\w+)* (?:U?!?P\w+, )?0x([0-9a-f]+)", x))
+    ]
+    loops = [(t, a) for t, a in branches if t < a]
+    if not loops:
+        raise RuntimeError("int32_chain_sass: no loop in int32_chain_kernel's SASS")
+
+    def body(lo, hi):
+        return [x for a, x in ins if lo <= a <= hi]
+
+    lo, hi = max(loops, key=lambda r: sum("0x9e3779b9" in x for x in body(*r)))
+    copies = sum("0x9e3779b9" in x for x in body(lo, hi))
+    if copies == 0:
+        raise RuntimeError("int32_chain_sass: the chain's xor constant is not in its loop")
+    by_opcode = int32_op_counts(body(lo, hi))
+    return {"per_iteration": sum(by_opcode.values()) / copies, "unrolled": copies,
+            "by_opcode": by_opcode}
 
 
 def diag_sass_ops_per_cell(P):
@@ -354,10 +424,8 @@ def diag_sass_ops_per_cell(P):
     of the built library: its pair-step loop (the backward branch around
     the input slide's SHFL.IDX; 4 cells per thread and pair), without the
     regions a forward branch inside it skips (the 16-row flush stores)
-    and without the opcodes peak.int32_op_counts leaves out."""
-    from shasta_tpu_torch.utils import peak
-
-    ins = peak.kernel_sass(f"banded_fwd_diag_kernelILi4ELb0ELi{P}E")
+    and without the opcodes int32_op_counts leaves out."""
+    ins = kernel_sass(f"banded_fwd_diag_kernelILi4ELb0ELi{P}E")
     branches = [
         (a, int(m.group(1), 16)) for a, x in ins
         if (m := re.search(r"BRA (?:P\d, )?0x([0-9a-f]+)", x))
@@ -369,7 +437,7 @@ def diag_sass_ops_per_cell(P):
     skipped = {
         b for a, t in branches if lo <= a < t <= hi for b, _ in ins if a < b < t
     }
-    by_opcode = peak.int32_op_counts(
+    by_opcode = int32_op_counts(
         x for a, x in ins if lo <= a <= hi and a not in skipped
     )
     n = sum(by_opcode.values())
@@ -579,15 +647,17 @@ def cuda_ms(fn, reps):
 
 def bound_ms(ops, nbytes, sm_clock_mhz):
     """(bound, what bounds it, operations time, bytes time), all ms: int32
-    operations over the card's int32 rate, the higher of the data sheet's
-    at the SM clock and the ceiling phase 1 measured (INT32_RATES), and
+    operations over the card's issue limit at the SM clock (peak.py:
+    128 lanes an SM; phase 1 checks that the anti-diagonal body and
+    int32_chain issue no fewer instructions than their bounds count
+    operations, and that the measured int32 ceiling stays below it), and
     bytes over the HBM rate."""
     from shasta_tpu_torch.utils import peak
 
-    sheet = peak.data_sheet_int32_ops(
+    issue = peak.issue_limit_ops(
         sm_clock_mhz, torch.cuda.get_device_properties(0).multi_processor_count
     )
-    t_ops = ops / max(sheet, INT32_RATES.get("measured", 0.0)) * 1e3
+    t_ops = ops / issue * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     by = "operations" if t_ops >= t_bytes else "bytes"
     return max(t_ops, t_bytes), by, t_ops, t_bytes
@@ -1968,8 +2038,8 @@ def spot_checks_stop():
         _SPOT["pool"] = None
 
 
-def spot_check(label, markers, kmer_table, aligned, params, say=log, n=128):
-    """n - 1 seeded kept pairs plus the longest of a run's Alignments,
+def spot_check(label, markers, kmer_table, aligned, params, say=log):
+    """127 seeded kept pairs plus the longest of a run's Alignments,
     re-aligned with the plain version on the card under AlignParams
     ``params``: identical ordinals. ``say`` takes the lines it reports."""
     from shasta_tpu_torch.ops import align as AL
@@ -1978,7 +2048,7 @@ def spot_check(label, markers, kmer_table, aligned, params, say=log, n=128):
     rng = np.random.default_rng(7)
     longest = int(np.argmax(aligned.n_markers0 + aligned.n_markers1))
     pick = np.unique(np.concatenate([
-        rng.choice(aligned.count, min(n - 1, aligned.count), replace=False), [longest]
+        rng.choice(aligned.count, min(127, aligned.count), replace=False), [longest]
     ]))
     ts = time.perf_counter()
     if kmer_table.k not in _DS_TABLES:
@@ -2589,7 +2659,7 @@ def phase_bench(sm_clock_mhz):
     process: the roofline batch through banded_align_pairs equal to the
     plain version bit for bit; int32_chain against its plain version
     (check_int32_chain); two reps of the bench's align_candidates and a
-    rep under a one-rank mesh giving equal AlignmentStores; 64 of the
+    rep under a one-rank mesh giving equal AlignmentStores; 128 of the
     kept pairs re-aligned with the plain version (spot_check)."""
     import torch.distributed as dist
 
@@ -2652,7 +2722,7 @@ def phase_bench(sm_clock_mhz):
             raise AssertionError(f"bench: {name}'s AlignmentStore differs from the first rep's")
     log(f"bench: {cand.count} candidates, {first.count} kept; two reps and a one-rank NCCL "
         f"mesh rep give equal AlignmentStores ({time.perf_counter() - t0:.1f}s)")
-    spot_check("bench", markers, kt, first, AlignParams(**PB.ALIGN), n=64)
+    spot_check("bench", markers, kt, first, AlignParams(**PB.ALIGN))
     return {"line": line, "launches": launches, "seconds": bench_s, "int32_chain": chain}
 
 
@@ -2661,7 +2731,7 @@ def check_int32_chain(sm_clock_mhz):
     K 256 on the bench's tile (where the chain reaches a fixed point within
     5 iterations) and at K 1, 2 and 5 on 1,000,003 values over the whole
     int32 range (a ragged last block). Times both at K 256 on the bench's
-    tile, with the bound from the data sheet's rate."""
+    tile, against bound_ms."""
     from shasta_tpu_torch import bench as PB
     from shasta_tpu_torch.utils import peak
 
@@ -2679,15 +2749,13 @@ def check_int32_chain(sm_clock_mhz):
     K = 256
     ms = cuda_ms(lambda: peak.int32_chain(tile, K), 20)
     plain_ms = cuda_ms(lambda: peak.int32_chain_plain(tile, K), 1)
-    ops = tile.numel() * peak.OPS_PER_ITERATION * K
-    sheet = peak.data_sheet_int32_ops(
-        sm_clock_mhz, torch.cuda.get_device_properties(0).multi_processor_count
+    bound, by, _, _ = bound_ms(
+        tile.numel() * peak.OPS_PER_ITERATION * K, 8 * tile.numel(), sm_clock_mhz
     )
-    t_ops, t_bytes = ops / sheet * 1e3, 8 * tile.numel() / HBM_BYTES_PER_S * 1e3
-    bound, by = max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
     log(f"int32_chain: equal to the plain version modulo 2**32 ({', '.join(errs)}); at K {K} "
         f"on the bench's (1024, 512) tile {ms:.4f} ms (plain {plain_ms:.1f} ms; bound "
-        f"{bound:.4f} ms by {by} at the data sheet's rate, {bound / ms:.1%})")
+        f"{bound:.4f} ms by {by}, {bound / ms:.1%})")
+    check_shares("int32_chain", bound, {"int32_chain": ms})
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
             "max_abs_err": max(errs.values()), "K": K, "tile": list(tile.shape)}
 

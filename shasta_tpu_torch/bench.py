@@ -29,9 +29,14 @@ The workload and the formulas are bench.py's:
   throughput of ``banded_align_pairs`` (forward, ``banded_tb`` and
   ``metrics_from_mj``) on a seeded batch of 1024 pairs at LA = LB = 512,
   W 128: K calls, each on ``b`` rolled by the call's index, their
-  outputs summed on the device, timed with CUDA events at K 26 against
-  K 2, so the per-chain costs cancel; B LA W cells and B pairs over the
-  time of one call.
+  outputs summed on the device, timed at K 26 against K 2; B LA W cells
+  and B pairs over the time of one call. On the card each chain is
+  captured once in a CUDA graph and timed by its replays (CUDA events),
+  so the time is the card's alone, as bench.py's single jitted loop is:
+  a call from Python also pays the host's enqueue of the wrapper's
+  torch ops, which the K 26 - K 2 difference does not cancel (it grows
+  with K). stderr gives the rate of both. The launch counts count
+  each captured launch once and no replay.
 - ``kernel_chunked_gcells_per_sec``: the JAX package's other route
   (``_fwd_chunked_kernel`` + ``_tb_chunked_kernel``) at the same shape.
   The port has one route for both TPU routes (``banded_fwd`` and
@@ -41,13 +46,18 @@ The workload and the formulas are bench.py's:
   eight-operation chain over a seeded (1024, 512) tile, timed at K 8448
   against K 256, as the hand-written kernel ``csrc/int32_peak.cu``
   (``utils/peak.py:int32_chain``); operations counted by the chain's
-  eight source operations, as bench.py counts them.
+  eight source operations, as bench.py counts them. This tile does not
+  split evenly over an H100's SMs (31.03 warps a sub-partition on
+  average, 32 on the slowest), so it is this tile's ceiling, which may
+  differ by a few per cent from the one ``chip_smoke.py`` phase 1
+  measures on a tile every SM shares equally; the bounds there divide
+  by neither, but by the issue limit (``peak.issue_limit_ops``).
 - ``kernel_ops_per_cell``: ``align_kernel.FWD_INT_OPS_PER_CELL`` (13), the
   int32 operations a cell needs, which the port's bounds count; the
   TPU kernel's 62 counted what that kernel executes, and a count of
   instructions issued would reward a kernel that wastes them. So
-  ``kernel_pct_peak`` = 100 gcells 13 / ceiling is the share of the
-  bound under the measured ceiling.
+  ``kernel_pct_peak`` = 100 gcells 13 / vpu_peak_gops is the share of
+  the bound under this tile's ceiling.
 
 Where bench.py turns a failure into a 0 (a mesh that does not start, a
 rep that raises or times nothing), the port raises: the process exits
@@ -55,15 +65,16 @@ non-zero and prints no result. The 900 s cap on the timed reps stays.
 
 The last line of stdout is one JSON object with bench.py's 12 keys in
 its order. Everything else goes to stderr: the card's name and power
-limit, its SM clock, the ceiling kernel's int32 SASS per iteration, the
-data sheet's int32 rate, the launches of each kernel, and the card's
-busy share (the DP kernels' device time over the wall time) during one
-``align_candidates`` and during one chain of the roofline.
+limit, its SM clock, the data sheet's int32 rate and the issue limit,
+the launches of each kernel, the card's busy share (the DP kernels'
+device time over the wall time) during one ``align_candidates``, and
+the roofline's time a call from graph replays and from Python.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import sys
 import time
@@ -199,12 +210,39 @@ def marginal(device, fn, K0, K1):
     return per
 
 
+def graphed(fn):
+    """``fn()`` (no arguments, a tensor out) captured in a CUDA graph:
+    a function that replays it and returns the graph's output tensor.
+    ``fn`` runs once on a side stream before the capture (torch's warm-up
+    rule); raises unless the first replay gives that call's output."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        want = fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    graph.replay()
+    if not torch.equal(out, want):
+        raise RuntimeError("a CUDA graph's replay differs from the call it captured")
+
+    def replay():
+        graph.replay()
+        return out
+
+    return replay
+
+
 def kernel_roofline_prepare(device, seed=11, K0=2, K1=26):
-    """(``rep()``, ``long()``): ``rep()`` gives one (Gcells/s, pairs/s)
+    """(``rep()``, ``eager()``): ``rep()`` gives one (Gcells/s, pairs/s)
     estimate of ``banded_align_pairs`` on :func:`roofline_batch`
     (bench.py:64): K calls, ``b`` rolled by the call's index, outputs
-    summed on the device, K1 against K0; ``long()`` runs the chain of K1
-    calls once. The chain is run at both K once before."""
+    summed on the device, K1 against K0, each chain a CUDA graph's
+    replay on the card; ``eager()`` gives the same estimate of the chain
+    called from Python. Each chain runs once before, both ways (the
+    graphs' warm-up runs on a stream of its own, whose cached memory the
+    current stream does not reuse)."""
     a, a_len, b, b_len, bm = (torch.from_numpy(x).to(device) for x in roofline_batch(seed))
     B, LA = a.shape
     LB, W = b.shape[1], ROOFLINE_W
@@ -216,23 +254,27 @@ def kernel_roofline_prepare(device, seed=11, K0=2, K1=26):
             acc += AK.banded_align_pairs(a, a_len, torch.roll(b, i, 0), b_len, bm, **kw).sum()
         return acc
 
-    seconds(device, lambda: chain(K0))
-    seconds(device, lambda: chain(K1))
+    if device.type == "cuda":
+        runs = {K: graphed(functools.partial(chain, K)) for K in (K0, K1)}
+    else:
+        runs = {K: functools.partial(chain, K) for K in (K0, K1)}
+    for K in (K0, K1):
+        seconds(device, runs[K])
+        seconds(device, functools.partial(chain, K))
 
-    def rep():
-        per = marginal(device, chain, K0, K1)
+    def rates(fn):
+        per = marginal(device, fn, K0, K1)
         return B * LA * W / per / 1e9, B / per
 
-    return rep, lambda: chain(K1)
+    return (lambda: rates(lambda K: runs[K]())), (lambda: rates(chain))
 
 
-def int32_peak_prepare(device, tile=None, K0=256, K1=8448):
+def int32_peak_prepare(device, K0=256, K1=8448):
     """A ``rep()`` giving one int32 ops/s estimate of the card
-    (bench.py:143): ``peak.int32_chain`` over ``tile`` (a numpy int32
-    array; :func:`ceiling_tile` when None), K1 against K0 iterations,
-    peak.OPS_PER_ITERATION operations an element and iteration. The
-    kernel is run at both K once before."""
-    x = torch.from_numpy(ceiling_tile() if tile is None else tile).to(device)
+    (bench.py:143): ``peak.int32_chain`` over :func:`ceiling_tile`, K1
+    against K0 iterations, peak.OPS_PER_ITERATION operations an element
+    and iteration. The kernel is run at both K once before."""
+    x = torch.from_numpy(ceiling_tile()).to(device)
     seconds(device, lambda: peak.int32_chain(x, K0))
     seconds(device, lambda: peak.int32_chain(x, K1))
 
@@ -263,20 +305,17 @@ def busy_share(label, fn) -> float:
 
 
 def describe_card() -> float:
-    """Print the card's name, power limit and SM clock, the ceiling
-    kernel's SASS and the data sheet's int32 rate; return that rate."""
+    """Print the card's name, power limit and SM clock, the data sheet's
+    int32 rate and the issue limit; return the data sheet's rate."""
     say(f"card {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
         f"nvidia-smi: {peak.nvidia_smi('name,power.limit')}")
     mhz = float(peak.nvidia_smi("clocks.max.sm").split()[0])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     say(f"SM clock: max {mhz:.0f} MHz, now {peak.nvidia_smi('clocks.sm')}, {sms} SMs")
-    sass = peak.int32_chain_sass()
-    say(f"int32_chain SASS: {sass['per_iteration']} int32 instructions per element and "
-        f"iteration against {peak.OPS_PER_ITERATION} source operations "
-        f"(loop unrolled {sass['unrolled']}x: {sass['by_opcode']})")
     rate = peak.data_sheet_int32_ops(mhz, sms)
     say(f"data sheet int32 rate: {rate / 1e9} Gops/s ({sms} SMs x "
-        f"{peak.INT32_LANES_PER_SM} lanes x {mhz:.0f} MHz)")
+        f"{peak.INT32_LANES_PER_SM} lanes x {mhz:.0f} MHz); issue limit "
+        f"{peak.issue_limit_ops(mhz, sms) / 1e9} Gops/s ({peak.ISSUE_LANES_PER_SM} lanes)")
     return rate
 
 
@@ -342,7 +381,7 @@ def main(argv=None) -> int:
     if dev.type == "cuda":
         busy_share("one align_candidates", run)
 
-    k_rep, k_long = kernel_roofline_prepare(dev)
+    k_rep, k_eager = kernel_roofline_prepare(dev)
     v_rep = int32_peak_prepare(dev)
     gcells = kernel_pairs = gcells_chunked = vpu_gops = 0.0
     for _ in range(KERNEL_REPS):
@@ -354,7 +393,8 @@ def main(argv=None) -> int:
     say(f"roofline {gcells} Gcells/s, {kernel_pairs} pairs/s; chunked rep {gcells_chunked} "
         f"Gcells/s; int32 ceiling {vpu_gops} Gops/s")
     if dev.type == "cuda":
-        busy_share("the roofline's long chain", k_long)
+        say(f"roofline called from Python (the host's enqueue included): {k_eager()[0]} "
+            f"Gcells/s, against {gcells} from CUDA graph replays")
         say(f"int32 ceiling / data sheet: {vpu_gops * 1e9 / data_sheet}; SM clock now "
             f"{peak.nvidia_smi('clocks.sm')}")
     say("launches " + json.dumps({**AK.LAUNCHES, **peak.LAUNCHES}))

@@ -134,7 +134,8 @@ WAVES_MAX_W = 2048
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC_DIR = os.path.join(_PKG, "csrc")
 _BUILD_DIR = os.path.join(_PKG, "build", "cuda")
-_SO = os.path.join(_BUILD_DIR, "libbanded_align.so")
+# The built library of every csrc/*.cu kernel (library() loads it).
+LIBRARY_PATH = os.path.join(_BUILD_DIR, "libbanded_align.so")
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3"]
 
 _lib = None
@@ -183,7 +184,7 @@ def build_commands(nvcc: str, out: str) -> tuple[list[list[str]], list[str]]:
 
 def library_stale(so: str = None) -> bool:
     """True when the library is missing or older than any source."""
-    so = so or _SO
+    so = so or LIBRARY_PATH
     if not os.path.exists(so):
         return True
     cu, cuh = kernel_sources()
@@ -216,7 +217,7 @@ def build_kernels(force: bool = False) -> float:
         t0 = time.perf_counter()
         if force or library_stale():
             os.makedirs(_BUILD_DIR, exist_ok=True)
-            tmp = f"{_SO}.{os.getpid()}.tmp"
+            tmp = f"{LIBRARY_PATH}.{os.getpid()}.tmp"
             compiles, link = build_commands(_nvcc(), tmp)
             try:
                 errs = _run_all(compiles)
@@ -229,10 +230,10 @@ def build_kernels(force: bool = False) -> float:
                 for c in compiles:  # [..., "-o", object, source]
                     if os.path.exists(c[-2]):
                         os.remove(c[-2])
-            os.replace(tmp, _SO)
+            os.replace(tmp, LIBRARY_PATH)
             _lib = None
         if _lib is None:
-            lib = ctypes.CDLL(_SO)
+            lib = ctypes.CDLL(LIBRARY_PATH)
             vp, ci = ctypes.c_void_p, ctypes.c_int
             lib.banded_fwd_diag_launch.argtypes = [vp] * 5 + [ci] * 7 + [vp] * 5
             lib.banded_fwd_diag_launch.restype = ci
@@ -253,7 +254,9 @@ def build_kernels(force: bool = False) -> float:
         return time.perf_counter() - t0
 
 
-def _load():
+def library():
+    """The loaded ctypes library of every csrc/*.cu kernel (at
+    LIBRARY_PATH), built on first use."""
     if _lib is None:
         build_kernels()
     return _lib
@@ -460,7 +463,7 @@ def _launch_fwd(name, body, a, a_len, b, b_len, band_min, LA, LB, W, match,
     bd = torch.empty(B, dtype=torch.int32, device=dev)
     if B == 0:
         return dirs, best, bi, bd
-    lib = _load()
+    lib = library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     ev = _trace_start()
     rc = getattr(lib, _FWD_LAUNCHERS[name, body])(
@@ -488,7 +491,7 @@ def banded_tb(dirs, bi, bd, band_min, *, LA, W):
     mj = torch.empty((B, LA), dtype=torch.int32, device=dirs.device)
     if B == 0:
         return mj
-    lib = _load()
+    lib = library()
     stream = torch.cuda.current_stream(dirs.device).cuda_stream
     ev = _trace_start()
     rc = lib.banded_tb_launch(

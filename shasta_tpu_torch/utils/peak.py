@@ -15,8 +15,6 @@ plain version and the JAX chain agree modulo 2**32.
 
 from __future__ import annotations
 
-import os
-import re
 import subprocess
 
 import torch
@@ -27,19 +25,21 @@ from shasta_tpu_torch.ops import align_kernel as AK
 LAUNCHES = {"int32_chain": 0}
 
 # The source operations of one iteration, the count bench.py's ops/s
-# uses (the compiler may fuse some: int32_chain_sass counts what it issues).
+# uses (the compiler may fuse some: chip_smoke.py phase 1 counts the
+# loop's SASS and checks that it issues no fewer).
 OPS_PER_ITERATION = 8
 # The data sheet's int32 lanes per Hopper SM (4 partitions x 16 INT32
-# units); the card's int32 rate is this times the SMs and the SM clock.
+# units); the card's int32 rate by the data sheet is this times the SMs
+# and the SM clock. An H100 runs bench.py's chain faster than that (an
+# IMAD issues on the FMA pipe), so this rate bounds no kernel's time.
 INT32_LANES_PER_SM = 64
+# The issue limit of a Hopper SM: one warp instruction a cycle on each
+# of its 4 sub-partitions. No kernel issues instructions faster, so
+# operations counted no higher than the instructions a kernel issues,
+# over this rate at the SM's highest clock, bound its time from below.
+ISSUE_LANES_PER_SM = 128
 _XOR = -1640531527  # 0x9E3779B9 as int32
 _MIN = 1 << 30
-# SASS opcodes left out of a count of issued int32 operations: memory,
-# control and shuffles (uniform-datapath U* opcodes are left out too).
-NOT_INT_OPS = {
-    "SHFL", "BRA", "BSSY", "BSYNC", "STG", "LDG", "LDC", "LDS", "STS", "BAR",
-    "NOP", "EXIT", "WARPSYNC",
-}
 
 
 def nvidia_smi(query: str) -> str:
@@ -56,6 +56,12 @@ def data_sheet_int32_ops(sm_clock_mhz: float, sms: int) -> float:
     """int32 operations per second by the data sheet: INT32_LANES_PER_SM
     lanes on each of ``sms`` SMs at ``sm_clock_mhz``."""
     return sms * INT32_LANES_PER_SM * sm_clock_mhz * 1e6
+
+
+def issue_limit_ops(sm_clock_mhz: float, sms: int) -> float:
+    """Thread instructions per second at the issue limit:
+    ISSUE_LANES_PER_SM lanes on each of ``sms`` SMs at ``sm_clock_mhz``."""
+    return sms * ISSUE_LANES_PER_SM * sm_clock_mhz * 1e6
 
 
 def int32_chain_plain(x: torch.Tensor, K: int) -> torch.Tensor:
@@ -89,7 +95,7 @@ def int32_chain(x: torch.Tensor, K: int) -> torch.Tensor:
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
-    lib = AK._load()
+    lib = AK.library()
     rc = lib.int32_chain_launch(
         x.data_ptr(), x.numel(), K, out.data_ptr(),
         torch.cuda.current_stream(x.device).cuda_stream,
@@ -98,52 +104,3 @@ def int32_chain(x: torch.Tensor, K: int) -> torch.Tensor:
         raise RuntimeError(f"int32_chain launch failed (cudaError {rc}) at {x.numel()} x K {K}")
     LAUNCHES["int32_chain"] += 1
     return out
-
-
-def kernel_sass(name: str) -> list[tuple[int, str]]:
-    """(address, instruction) of the first function of the built library
-    whose mangled name holds ``name``, from cuobjdump -sass, predicates
-    stripped. Needs the CUDA toolkit's cuobjdump."""
-    tool = os.path.join(os.path.dirname(AK._nvcc()), "cuobjdump")
-    sass = subprocess.run(
-        [tool, "-sass", AK._SO], capture_output=True, text=True, check=True
-    ).stdout
-    fn = next(f for f in sass.split("Function : ")[1:] if name in f.split("\n", 1)[0])
-    return [
-        (int(a, 16), re.sub(r"^@!?U?P[T\d]+\s+", "", x.strip()))
-        for a, x in re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", fn)
-    ]
-
-
-def int32_op_counts(instructions) -> dict:
-    """The count of each int32 arithmetic opcode among ``instructions``
-    (SASS text), most frequent first; NOT_INT_OPS and U* opcodes left out."""
-    ops = [x.split()[0].split(".")[0] for x in instructions]
-    ops = [o for o in ops if o not in NOT_INT_OPS and not o.startswith("U")]
-    return {o: ops.count(o) for o in sorted(set(ops), key=ops.count, reverse=True)}
-
-
-def int32_chain_sass() -> dict:
-    """The int32 instructions int32_chain_kernel issues per element and
-    iteration: its unrolled loop (the backward branch whose body holds
-    the most copies of the chain's xor constant), by int32_op_counts,
-    divided by those copies."""
-    ins = kernel_sass("int32_chain_kernel")
-    branches = [
-        (int(m.group(1), 16), a) for a, x in ins
-        if (m := re.search(r"BRA(?:\.\w+)* (?:U?!?P\w+, )?0x([0-9a-f]+)", x))
-    ]
-    loops = [(t, a) for t, a in branches if t < a]
-    if not loops:
-        raise RuntimeError("int32_chain_sass: no loop in int32_chain_kernel's SASS")
-
-    def body(lo, hi):
-        return [x for a, x in ins if lo <= a <= hi]
-
-    lo, hi = max(loops, key=lambda r: sum("0x9e3779b9" in x for x in body(*r)))
-    copies = sum("0x9e3779b9" in x for x in body(lo, hi))
-    if copies == 0:
-        raise RuntimeError("int32_chain_sass: the chain's xor constant is not in its loop")
-    by_opcode = int32_op_counts(body(lo, hi))
-    return {"per_iteration": sum(by_opcode.values()) / copies, "unrolled": copies,
-            "by_opcode": by_opcode}

@@ -415,3 +415,15 @@ def test_int32_chain_matches_plain_on_card(card, K, values):
     assert got.dtype == torch.int32 and got.shape == t.shape
     assert torch.equal((got.long() - ref.long()) % 2**32, torch.zeros_like(got, dtype=torch.long))
     assert peak.LAUNCHES["int32_chain"] == before + 1
+
+
+@pytest.mark.cuda
+def test_bench_roofline_graphs_on_card(card):
+    """The bench's roofline on the card: each chain captured in a CUDA
+    graph, whose first replay must equal the chain called from Python
+    (bench.graphed raises otherwise); both timings give positive rates."""
+    from shasta_tpu_torch import bench as PB
+
+    rep, eager = PB.kernel_roofline_prepare(card, K0=1, K1=3)
+    for gcells, pairs in (rep(), eager()):
+        assert gcells > 0 and pairs > 0
