@@ -1,6 +1,14 @@
 """Drive shasta_tpu_torch on one NVIDIA card and hold it to its references.
 
     python3 chip_smoke.py   # needs one CUDA device
+    [SCALE=25 REGIME=ont] python3 chip_smoke.py --module scale_bench [--out FILE]
+
+With no arguments it runs every phase below. With ``--module NAME`` it
+runs one module of shasta_tpu_torch/benchmarks on the card instead, its
+knobs (SCALE, REGIME, ITERATIVE, WAVES_AB_REPS) from the environment, and
+records the run (record_module: wall and stage seconds, launches and
+device ms by kernel class, class-matrix builds, peak device memory and
+RSS, the FASTA files' sha256) to chiprun_out/.
 
 Phases (any failure raises; the script then exits non-zero and prints
 no result line):
@@ -137,12 +145,23 @@ no result line):
    bench.py's workload in a process of its own: its last stdout line has
    bench.py's 12 keys, finite values, value and the Gcells rates above 0
    and kernel_pct_peak at 105 or below; its launches (stderr) are the
-   "bench" path. Then in this process: the roofline batch through
-   banded_align_pairs equal to the plain version; int32_chain equal to
+   "bench" path. Then in this process: every kernel of the roofline
+   batch (B 1024 x LA 512 x W 128; banded_fwd_waves at waves 2 and 4)
+   equal to the plain version bit for bit; int32_chain equal to
    its plain version modulo 2**32 (K 256 on the bench's tile; K 1, 2, 5
    over the whole int32 range), timed; two reps of the bench's
    align_candidates and one under a one-rank NCCL mesh give equal
    AlignmentStores; 128 kept pairs re-aligned with the plain version.
+13. The scale and A/B modules (shasta_tpu_torch/benchmarks), each through
+   its main(argv) in this process, launch counts from 0 just before it:
+   scale_bench at SCALE=1 under both regimes, mode2_scale_bench at
+   SCALE=1 uniform1, waves_ab at WAVES_AB_REPS=2 and mode2_phase_exp at a
+   500 kb genome (its SIZE constant cut) with two of its four
+   configurations (its CONFIGS cut). Each assembly run must launch banded_fwd
+   and banded_tb (not banded_fwd_waves), print its graded summary and
+   leave non-empty FASTA files; waves_ab must launch banded_fwd_waves
+   (every variant's chain equal to waves 1's). Then scale_bench's reads
+   at SCALE=5 REGIME=ont must hash equal to phase 4's FASTA.
 
 The spot checks of phases 4, 6 and 8 (128 kept pairs re-aligned with
 the plain version on the card, from the run directory's stored stages)
@@ -154,8 +173,8 @@ The grades record accuracy and gate nothing: no floor has been measured.
 
 Each phase's seconds print. The line before the last is
 {"kernels": [...]}, each kernel's launches summed over the paths that
-ran it (``paths``: the runs of phases 4 to 12, the mesh's ranks, the
-explorer, the stage drivers and the bench included; int32_chain, the
+ran it (``paths``: the runs of phases 4 to 13, the mesh's ranks, the
+explorer, the stage drivers, the bench and the benchmarks modules included; int32_chain, the
 bench's int32 ceiling, on the bench's path only); the last line is
 {"ok": true, "device": {...}}.
 """
@@ -1318,6 +1337,10 @@ def phase_real_size(work, sm_clock_mhz):
 
     graded = grade("real size", os.path.join(run_dir, "Assembly.fasta"), genome)
     del genome
+    shas = {"fasta_sha256": file_sha256(fasta),
+            "assembly_fasta_sha256": file_sha256(os.path.join(run_dir, "Assembly.fasta"))}
+    log(f"real size: sha256 of the reads {shas['fasta_sha256']}, of Assembly.fasta "
+        f"{shas['assembly_fasta_sha256']}")
 
     # computeAlignments again on the run's Markers and AlignmentCandidates
     # with the waves kernel: counts to 0 just before, read just after. Its
@@ -1388,6 +1411,7 @@ def phase_real_size(work, sm_clock_mhz):
         "shapes": shapes, "fwd_ms": fwd_ms, "tb_ms": tb_ms, "nominal_cells": nominal,
         "processed_cells": real_cells, "in_matrix_cells": in_matrix,
         "reruns": reruns, "by_class": by_class, "grade": graded, "hashes": run_hashes,
+        **shas,
     }
 
 # ---------------------------------------------------------------------------
@@ -1421,12 +1445,16 @@ def write_mode2_golden_reads(path):
     synth.write_fasta(path, reads)
 
 
+def file_sha256(path):
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for block in iter(lambda: f.read(1 << 24), b""):
+            h.update(block)
+    return h.hexdigest()
+
+
 def file_hashes(run_dir, names):
-    out = {}
-    for name in names:
-        with open(os.path.join(run_dir, name), "rb") as f:
-            out[f"file:{name}"] = hashlib.sha256(f.read()).hexdigest()
-    return out
+    return {f"file:{name}": file_sha256(os.path.join(run_dir, name)) for name in names}
 
 
 def run_cli(label, work, argv, waves=None):
@@ -2656,8 +2684,10 @@ def phase_bench(sm_clock_mhz):
     there), its last stdout line held to bench.py's 12 keys, finite
     values, value and the Gcells rates above 0 and kernel_pct_peak at 105
     or below; its launches (stderr) are the "bench" path. Then, in this
-    process: the roofline batch through banded_align_pairs equal to the
-    plain version bit for bit; int32_chain against its plain version
+    process: every kernel of the roofline batch (B 1024 x LA 512 x W 128)
+    equal to the plain version bit for bit (check_kernels: banded_fwd's
+    bodies, banded_tb, banded_align_pairs and banded_fwd_waves at waves 2
+    and 4, the shape waves_ab times in phase 13); int32_chain against its plain version
     (check_int32_chain); two reps of the bench's align_candidates and a
     rep under a one-rank mesh giving equal AlignmentStores; 128 of the
     kept pairs re-aligned with the plain version (spot_check)."""
@@ -2696,12 +2726,11 @@ def phase_bench(sm_clock_mhz):
     log(f"bench: {bench_s:.1f}s, exit 0, line {last}")
 
     dev = torch.device("cuda")
-    args = [torch.from_numpy(x).to(dev) for x in PB.roofline_batch()]
-    kw = dict(LA=args[0].shape[1], LB=args[2].shape[1], W=PB.ROOFLINE_W, **PB.SCORES)
-    if not torch.equal(K.banded_align_pairs(*args, **kw), K.banded_align_pairs_plain(*args, **kw)):
-        raise AssertionError("bench: the roofline batch differs from the plain version")
-    log(f"bench: the roofline batch ({args[0].shape[0]} pairs, LA {kw['LA']}, W {kw['W']}) "
-        "through banded_align_pairs equal to the plain version")
+    host = PB.roofline_batch()
+    (a, *_), *_ = check_kernels(host, host[0].shape[1], PB.ROOFLINE_W)
+    log(f"bench: the roofline batch ({a.shape[0]} pairs, LA {a.shape[1]}, W "
+        f"{PB.ROOFLINE_W}): every kernel equal to the plain version (banded_fwd_waves at "
+        f"waves {', '.join(map(str, WAVES))})")
     chain = check_int32_chain(sm_clock_mhz)
 
     t0 = time.perf_counter()
@@ -2761,6 +2790,259 @@ def check_int32_chain(sm_clock_mhz):
 
 
 # ---------------------------------------------------------------------------
+# Phase 13 and the scale runs
+# ---------------------------------------------------------------------------
+
+
+class _Tee(io.TextIOBase):
+    """A text stream that keeps what is written and passes it on to
+    ``echo`` (None: keeps it only)."""
+
+    def __init__(self, echo):
+        self.echo, self.parts = echo, []
+
+    def write(self, s):
+        self.parts.append(s)
+        if self.echo is not None:
+            self.echo.write(s)
+        return len(s)
+
+    def flush(self):
+        if self.echo is not None:
+            self.echo.flush()
+
+
+def printed_json(text):
+    """Every JSON object the module printed, in order: at a line that
+    starts with "{" or with "stage seconds: {" (that one under the key
+    "stageSeconds")."""
+    dec = json.JSONDecoder()
+    found = []
+    for m in re.finditer(r"^(stage seconds: )?\{", text, re.M):
+        try:
+            obj, _ = dec.raw_decode(text, m.end() - 1)
+        except json.JSONDecodeError:
+            continue
+        found.append({"stageSeconds": obj} if m.group(1) else obj)
+    return found
+
+
+def run_module(name, sm_clock_mhz, argv=(), env=None, tmp=None, constants=None, echo=False):
+    """``shasta_tpu_torch.benchmarks.<name>.main(argv)`` in this process,
+    with ``env`` set and the module's ``constants`` replaced for the
+    duration, ``tempfile.mkdtemp`` inside ``tmp``: launch counts reset
+    just before and read just after, the launch trace on, the device's
+    peak memory reset. Returns its exit code, wall seconds, launches,
+    kernel classes (kernel_classes) and their device ms, largest LA, the
+    class-matrix caches' builds (every _DeviceCsr the run made), peak
+    device memory (allocated and reserved) and this process's peak RSS,
+    the JSON objects it printed, and the sha256 of each FASTA of each run
+    directory it left in ``tmp``."""
+    import importlib
+    import resource
+
+    from shasta_tpu_torch.ops import align as AL
+    from shasta_tpu_torch.ops import align_kernel as K
+
+    mod = importlib.import_module(f"shasta_tpu_torch.benchmarks.{name}")
+    env = dict(env or {})
+    constants = dict(constants or {})
+    old_env = {k: os.environ.get(k) for k in env}
+    old_consts = {k: getattr(mod, k) for k in constants}
+    old_tmp, init = tempfile.tempdir, AL._DeviceCsr.__init__
+    csrs = []
+
+    def counted_init(self, *a, **kw):
+        init(self, *a, **kw)
+        csrs.append(self)
+
+    out = _Tee(sys.stdout if echo else None)
+    os.environ.update(env)
+    for k, v in constants.items():
+        setattr(mod, k, v)
+    tempfile.tempdir = tmp
+    AL._DeviceCsr.__init__ = counted_init
+    reset_launches()
+    K.TRACE = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        with waves_env(None), contextlib.redirect_stdout(out):
+            rc = mod.main(list(argv))
+        torch.cuda.synchronize()
+    finally:
+        wall = time.perf_counter() - t0
+        AL._DeviceCsr.__init__ = init
+        tempfile.tempdir = old_tmp
+        for k, v in old_consts.items():
+            setattr(mod, k, v)
+        for k, v in old_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        trace, K.TRACE = K.TRACE, None
+    launches = dict(K.LAUNCHES)
+    shapes = kernel_classes(trace, sm_clock_mhz, name, echo=False)
+    fastas = {}
+    for d in sorted(os.listdir(tmp)) if tmp else []:
+        for sub in sorted(os.listdir(os.path.join(tmp, d))):
+            p = os.path.join(tmp, d, sub)
+            for f in sorted(os.listdir(p)) if os.path.isdir(p) else [""]:
+                fp = os.path.join(p, f) if f else p
+                if fp.endswith(".fasta"):
+                    fastas[os.path.relpath(fp, os.path.join(tmp, d))] = {
+                        "bytes": os.path.getsize(fp), "sha256": file_sha256(fp)}
+    return {
+        "module": name, "argv": list(argv), "env": env, "constants": constants, "rc": rc,
+        "wall_s": wall, "launches": launches, "shapes": shapes,
+        "device_ms": {k: sum(c["device_ms"] for c in shapes if c["kernel"] == k)
+                      for k in launches},
+        "max_LA": max((c["LA"] for c in shapes), default=0),
+        "csr_builds": [{"builds": c.builds, "classes": sorted(c._members),
+                        "budget_mb": c._mat_budget >> 20} for c in csrs],
+        "peak_device_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "peak_device_reserved_bytes": torch.cuda.max_memory_reserved(),
+        "peak_rss_kb": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss,
+        "printed": printed_json("".join(out.parts)), "fastas": fastas,
+    }
+
+
+# Phase 13's runs: (label, module, environment, constants). mode2_phase_exp
+# runs two of its four configurations (PHASE_EXP_CONFIGS), the default
+# thresholds and both raised, to keep the phase near 120 s; the CPU tests
+# hold all four to the JAX script's.
+PHASE_EXP_CONFIGS = ("ref_defaults", "both")
+BENCHMARK_RUNS = [
+    ("scale-uniform1-1mb", "scale_bench", {"SCALE": "1", "REGIME": "uniform1"}, None),
+    ("mode2-uniform1-1mb", "mode2_scale_bench", {"SCALE": "1", "REGIME": "uniform1"}, None),
+    ("waves-ab", "waves_ab", {"WAVES_AB_REPS": "2"}, None),
+    ("scale-ont-1mb", "scale_bench", {"SCALE": "1", "REGIME": "ont"}, None),
+    ("phase-exp-500kb", "mode2_phase_exp", {}, {"SIZE": 500_000, "CONFIGS": PHASE_EXP_CONFIGS}),
+]
+
+
+def phase_benchmarks(real, sm_clock_mhz):
+    """Phase 13: the scale and A/B modules (shasta_tpu_torch/benchmarks), each
+    through its main(["--device", "cuda"]) in this process (run_module:
+    launch counts from 0 just before each run), at cut sizes
+    (BENCHMARK_RUNS). Each assembly run must launch banded_fwd and
+    banded_tb and not banded_fwd_waves, print its graded summary (or one
+    line a configuration) and leave non-empty FASTA files; waves_ab must
+    launch all three kernels (it raises unless every variant's chain
+    equals waves 1's) and print its JSON line. Then scale_bench's reads at
+    SCALE=5 REGIME=ont must hash equal to phase 4's FASTA."""
+    from shasta_tpu_torch.benchmarks import mode2_phase_exp as PE
+    from shasta_tpu_torch.benchmarks import scale_bench as SB
+    from shasta_tpu_torch.utils import synth
+
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_13_") as work:
+        for label, name, env, constants in BENCHMARK_RUNS:
+            tmp = os.path.join(work, label)
+            os.makedirs(tmp)
+            if constants and "CONFIGS" in constants:
+                constants = {**constants, "CONFIGS": [
+                    c for c in PE.CONFIGS if c[0] in constants["CONFIGS"]]}
+            r = run_module(name, sm_clock_mhz, ["--device", "cuda"], env, tmp, constants)
+            n = r["launches"]
+            if r["rc"] != 0:
+                raise AssertionError(f"{label}: main returned {r['rc']}")
+            want_waves = name == "waves_ab"
+            if not (n["banded_fwd"] and n["banded_tb"]) or (
+                    bool(n["banded_fwd_waves"]) != want_waves):
+                raise AssertionError(f"{label}: launches {n}")
+            if want_waves:
+                line = r["printed"][-1]
+                if sorted(line) != sorted(
+                        ["waves1_gcells_per_sec", "waves2_gcells_per_sec",
+                         "waves4_gcells_per_sec", "speedup_w2", "speedup_w4"]) or min(
+                        line.values()) <= 0:
+                    raise AssertionError(f"{label}: its line {line}")
+                graded = line
+            else:
+                empty = [f for f, e in r["fastas"].items() if e["bytes"] == 0]
+                if not r["fastas"] or empty:
+                    raise AssertionError(f"{label}: no FASTA or an empty one: {r['fastas']}")
+                if name == "mode2_phase_exp":
+                    graded = [o for o in r["printed"] if "config" in o]
+                    if [o["config"] for o in graded] != list(PHASE_EXP_CONFIGS):
+                        raise AssertionError(f"{label}: its lines {graded}")
+                else:
+                    graded = next(o for o in r["printed"] if "regime" in o)
+                    if not graded["accuracy"]["contigKmers"]:
+                        raise AssertionError(f"{label}: nothing graded: {graded['accuracy']}")
+            stages = next((o["stageSeconds"] for o in r["printed"] if "stageSeconds" in o
+                           and len(o) == 1), {})
+            log(
+                f"{label} ({name}, {env}, {constants or ''}): {r['wall_s']:.1f}s, launches "
+                f"{n}, kernels {r['device_ms']} ms, largest LA {r['max_LA']}, class-matrix "
+                f"builds {[c['builds'] for c in r['csr_builds']]}, peak device memory "
+                f"{r['peak_device_allocated_bytes'] / 2**30:.2f} GiB; stage seconds "
+                f"{stages}; graded {graded}"
+            )
+            runs[label] = r
+
+        t0 = time.perf_counter()
+        fasta = os.path.join(work, "scale5-ont.fasta")
+        genome = SB.make_genome(5)
+        synth.write_fasta(fasta, SB.make_reads(genome, "ont", 5))
+        got = file_sha256(fasta)
+    if got != real["fasta_sha256"]:
+        raise AssertionError(f"scale_bench's SCALE=5 ont reads {got[:12]} differ from "
+                             f"phase 4's {real['fasta_sha256'][:12]}")
+    log(f"scale_bench's reads at SCALE=5 REGIME=ont hash equal to phase 4's FASTA "
+        f"({got[:16]}; {time.perf_counter() - t0:.1f}s)")
+    return {"runs": runs, "scale5_ont_fasta_sha256": got}
+
+
+def record_module(argv) -> int:
+    """``python3 chip_smoke.py --module NAME [--out FILE]``:
+    one run of a benchmarks module on the card (run_module, its output
+    echoed, kernels built before), the environment's SCALE, REGIME,
+    ITERATIVE and WAVES_AB_REPS as given; writes the record to
+    chiprun_out/FILE (default module-NAME.json) and prints the card, the
+    host's memory and a one-line digest."""
+    import argparse
+
+    p = argparse.ArgumentParser(prog="python3 chip_smoke.py --module")
+    p.add_argument("--module", required=True)
+    p.add_argument("--out", default=None)
+    args = p.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
+    from shasta_tpu_torch.ops import align_kernel as K
+    from shasta_tpu_torch.utils import peak
+
+    card = peak.nvidia_smi("name,power.limit")
+    sm_clock = float(peak.nvidia_smi("clocks.max.sm").split()[0])
+    build_s = K.build_kernels()
+    page = os.sysconf("SC_PAGE_SIZE")
+    env = {k: os.environ[k] for k in ("SCALE", "REGIME", "ITERATIVE", "WAVES_AB_REPS")
+           if k in os.environ}
+    log(f"record: {args.module} on {card}; kernels built in {build_s:.2f}s; host memory "
+        f"{os.sysconf('SC_PHYS_PAGES') * page / 2**30:.1f} GiB, free "
+        f"{os.sysconf('SC_AVPHYS_PAGES') * page / 2**30:.1f} GiB; env {json.dumps(env)}")
+    with tempfile.TemporaryDirectory(prefix="record_") as tmp:
+        r = run_module(args.module, sm_clock, ["--device", "cuda"], env, tmp, echo=True)
+    r["card"], r["sm_clock_mhz"], r["build_s"] = card, sm_clock, build_s
+    os.makedirs(OUT_DIR, exist_ok=True)
+    out = os.path.join(OUT_DIR, args.out or f"module-{args.module}.json")
+    with open(out, "w") as f:
+        json.dump(r, f, indent=1)
+    classes = [(c["kernel"], c["body"], c["LA"], c["W"], c["launches"], round(c["device_ms"], 2))
+               for c in r["shapes"]]
+    log(f"record: rc {r['rc']}, wall {r['wall_s']:.1f}s, launches {r['launches']}, device ms "
+        f"{r['device_ms']}, largest LA {r['max_LA']}, classes {classes}, class-matrix builds "
+        f"{r['csr_builds']}, peak device memory allocated "
+        f"{r['peak_device_allocated_bytes'] / 2**30:.2f} GiB, reserved "
+        f"{r['peak_device_reserved_bytes'] / 2**30:.2f} GiB, peak RSS "
+        f"{r['peak_rss_kb'] / 2**20:.2f} GiB; FASTA {r['fastas']}; written to {out}")
+    return r["rc"]
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -2800,6 +3082,7 @@ def main() -> int:
             out["scripts_golden"] = run(11, phase_scripts_golden, work)
             out["scripts_5mb"] = run(11, phase_scripts_real_size, real, sm_clock)
         out["bench"] = run(12, phase_bench, sm_clock)
+        out["benchmarks"] = run(13, phase_benchmarks, real, sm_clock)
     finally:
         spot_checks_stop()
     log("phase seconds: " + ", ".join(f"{n} {t:.1f}" for n, t in sorted(seconds.items())))
@@ -2836,7 +3119,8 @@ def kernel_line(kernels, real, out):
     one-rank NCCL checks, and the sum over the two gloo ranks of the
     golden and 5 Mb runs), the explorer's pages (phase 10), the stage
     drivers (phase 11: the card's runs on the golden run, and the 5 Mb
-    run's) and the bench (phase 12, its own process's counts).
+    run's), the bench (phase 12, its own process's counts) and the
+    benchmarks modules' runs (phase 13).
     banded_fwd's entry is its row-scan body's (csrc/banded_align.cu):
     phase 2's times at the shape of the row-scan body's class that took
     the most of its time on the mode-0 run (a phase-1-like batch where
@@ -2858,6 +3142,8 @@ def kernel_line(kernels, real, out):
         "scripts-golden": out["scripts_golden"]["launches"],
         "scripts-5mb": out["scripts_5mb"]["launches"],
         "bench": out["bench"]["launches"],
+        **{f"benchmarks-{label}": r["launches"]
+           for label, r in out["benchmarks"]["runs"].items()},
     }
 
     def launched(name):
@@ -2955,4 +3241,4 @@ def kernel_line(kernels, real, out):
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(record_module(sys.argv[1:]) if sys.argv[1:] else main())

@@ -214,15 +214,22 @@ def graphed(fn):
     """``fn()`` (no arguments, a tensor out) captured in a CUDA graph:
     a function that replays it and returns the graph's output tensor.
     ``fn`` runs once on a side stream before the capture (torch's warm-up
-    rule); raises unless the first replay gives that call's output."""
+    rule); raises unless the first replay gives that call's output. The
+    function keeps ``fn`` (and so the tensors the graph reads) alive. The
+    launch trace (``align_kernel.TRACE``) is off during the capture: a
+    timing event cannot be recorded into a graph."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         want = fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        out = fn()
+    trace, AK.TRACE = AK.TRACE, None
+    try:
+        with torch.cuda.graph(graph):
+            out = fn()
+    finally:
+        AK.TRACE = trace
     graph.replay()
     if not torch.equal(out, want):
         raise RuntimeError("a CUDA graph's replay differs from the call it captured")
@@ -231,22 +238,29 @@ def graphed(fn):
         graph.replay()
         return out
 
+    # The graph reads the tensors fn holds (its inputs) at their captured
+    # addresses: they must live as long as the graph does.
+    replay.fn = fn
     return replay
 
 
-def kernel_roofline_prepare(device, seed=11, K0=2, K1=26):
-    """(``rep()``, ``eager()``): ``rep()`` gives one (Gcells/s, pairs/s)
-    estimate of ``banded_align_pairs`` on :func:`roofline_batch`
+def kernel_roofline_prepare(device, seed=11, K0=2, K1=26, waves=None):
+    """(``rep()``, ``eager()``, ``first``): ``rep()`` gives one (Gcells/s,
+    pairs/s) estimate of ``banded_align_pairs`` on :func:`roofline_batch`
     (bench.py:64): K calls, ``b`` rolled by the call's index, outputs
     summed on the device, K1 against K0, each chain a CUDA graph's
     replay on the card; ``eager()`` gives the same estimate of the chain
-    called from Python. Each chain runs once before, both ways (the
-    graphs' warm-up runs on a stream of its own, whose cached memory the
-    current stream does not reuse)."""
+    called from Python; ``first`` is the K0 chain's output (an int), the
+    graph's first replay on the card. ``waves`` goes to
+    ``banded_align_pairs`` (None: ``SHASTA_TORCH_WAVES``), as bench.py's
+    ``waves`` goes to its kernel call; every value gives the same
+    ``first``. Each chain runs once before, both ways (the graphs'
+    warm-up runs on a stream of its own, whose cached memory the current
+    stream does not reuse)."""
     a, a_len, b, b_len, bm = (torch.from_numpy(x).to(device) for x in roofline_batch(seed))
     B, LA = a.shape
     LB, W = b.shape[1], ROOFLINE_W
-    kw = dict(LA=LA, LB=LB, W=W, **SCORES)
+    kw = dict(LA=LA, LB=LB, W=W, waves=waves, **SCORES)
 
     def chain(K):
         acc = torch.zeros((), dtype=torch.int64, device=device)
@@ -258,6 +272,7 @@ def kernel_roofline_prepare(device, seed=11, K0=2, K1=26):
         runs = {K: graphed(functools.partial(chain, K)) for K in (K0, K1)}
     else:
         runs = {K: functools.partial(chain, K) for K in (K0, K1)}
+    first = int(runs[K0]())
     for K in (K0, K1):
         seconds(device, runs[K])
         seconds(device, functools.partial(chain, K))
@@ -266,7 +281,7 @@ def kernel_roofline_prepare(device, seed=11, K0=2, K1=26):
         per = marginal(device, fn, K0, K1)
         return B * LA * W / per / 1e9, B / per
 
-    return (lambda: rates(lambda K: runs[K]())), (lambda: rates(chain))
+    return (lambda: rates(lambda K: runs[K]())), (lambda: rates(chain)), first
 
 
 def int32_peak_prepare(device, K0=256, K1=8448):
@@ -381,7 +396,7 @@ def main(argv=None) -> int:
     if dev.type == "cuda":
         busy_share("one align_candidates", run)
 
-    k_rep, k_eager = kernel_roofline_prepare(dev)
+    k_rep, k_eager, _first = kernel_roofline_prepare(dev)
     v_rep = int32_peak_prepare(dev)
     gcells = kernel_pairs = gcells_chunked = vpu_gops = 0.0
     for _ in range(KERNEL_REPS):

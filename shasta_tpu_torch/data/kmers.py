@@ -27,6 +27,7 @@ parallel (no sequential RNG stream).
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -84,6 +85,17 @@ def kmer_downsampling_hash(kmer_ids: np.ndarray, k: int) -> np.ndarray:
     return hashing.murmur32_u64(n, 13477)
 
 
+@functools.lru_cache(maxsize=1)
+def downsampling_hash_table(k: int) -> np.ndarray:
+    """:func:`kmer_downsampling_hash` of every k-mer id (uint32 [4^k]),
+    read-only. A function of k alone: the table of the last k asked for
+    stays in memory (1 GiB at k 14, about 20 s to compute), so the runs
+    of one process at one k compute it once."""
+    table = kmer_downsampling_hash(np.arange(1 << (2 * k), dtype=np.uint64), k)
+    table.flags.writeable = False
+    return table
+
+
 @dataclass
 class KmerTable:
     k: int
@@ -101,9 +113,9 @@ class KmerTable:
         return reverse_complement_kmers(kmer_ids, self.k)
 
     def downsampling_hash_table(self) -> np.ndarray:
-        """hash for every k-mer id (uint32 [4^k])."""
-        ids = np.arange(self.kmer_count, dtype=np.uint64)
-        return kmer_downsampling_hash(ids, self.k)
+        """hash for every k-mer id (uint32 [4^k], read-only), computed
+        once per k in a process (:func:`downsampling_hash_table`)."""
+        return downsampling_hash_table(self.k)
 
     def check_rc_closed(self) -> bool:
         ids = np.arange(self.kmer_count, dtype=np.uint64)

@@ -424,6 +424,48 @@ def test_bench_roofline_graphs_on_card(card):
     (bench.graphed raises otherwise); both timings give positive rates."""
     from shasta_tpu_torch import bench as PB
 
-    rep, eager = PB.kernel_roofline_prepare(card, K0=1, K1=3)
+    rep, eager, first = PB.kernel_roofline_prepare(card, K0=1, K1=3)
     for gcells, pairs in (rep(), eager()):
         assert gcells > 0 and pairs > 0
+    assert first != 0
+
+
+@pytest.mark.cuda
+def test_bench_graph_keeps_its_inputs(card):
+    """bench.graphed's replay keeps the function it captured, and so the
+    tensors the graph reads: a replay after every other reference to them
+    is gone, and their memory could be handed out again, gives the
+    captured output."""
+    from shasta_tpu_torch import bench as PB
+
+    def doubled_sum(n):
+        x = torch.arange(n, dtype=torch.int64, device=card)
+        return lambda: (x * 2).sum()
+
+    replay = PB.graphed(doubled_sum(1 << 20))
+    want = (1 << 20) * ((1 << 20) - 1)
+    assert replay().item() == want
+    junk = [torch.full((1 << 20,), 7, dtype=torch.int64, device=card) for _ in range(8)]
+    assert replay().item() == want
+    del junk
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("waves", [2, 4])
+def test_bench_roofline_waves_on_card(card, waves):
+    """The roofline chain at waves 2 and 4 (waves_ab's variants) launches
+    banded_fwd_waves and gives the waves-1 chain's output; on the whole
+    roofline batch banded_align_pairs at that waves equals the plain
+    version bit for bit."""
+    from shasta_tpu_torch import bench as PB
+
+    want = PB.kernel_roofline_prepare(card, K0=1, K1=2, waves=1)[2]
+    before = K.LAUNCHES["banded_fwd_waves"]
+    rep, _eager, first = PB.kernel_roofline_prepare(card, K0=1, K1=2, waves=waves)
+    assert first == want
+    assert K.LAUNCHES["banded_fwd_waves"] > before
+    assert rep()[0] > 0
+    args = [torch.from_numpy(x).to(card) for x in PB.roofline_batch()]
+    kw = dict(LA=args[0].shape[1], LB=args[2].shape[1], W=PB.ROOFLINE_W, **PB.SCORES)
+    assert torch.equal(K.banded_align_pairs(*args, waves=waves, **kw),
+                       K.banded_align_pairs_plain(*args, **kw))
