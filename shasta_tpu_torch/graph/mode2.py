@@ -56,11 +56,6 @@ def create_marker_graph_edges_strict(
     markers per oriented read generate marker intervals; intervals with
     the same (source, target) split into one edge per distinct
     intervening RLE sequence; coverage thresholds apply per edge."""
-    from shasta_tpu_torch.utils.perf import StageProf
-
-    _prof = StageProf("strict")
-    _mark = _prof.mark
-
     moff = markers.offsets
     vt = mg.vertex_table
     valid = np.flatnonzero(vt >= 0)
@@ -104,7 +99,6 @@ def create_marker_graph_edges_strict(
     n_int = i0.shape[0]
     seq_lo = pos0 + k
     seq_len = np.maximum(pos1 - seq_lo, 0)
-    _mark("extract_prep")
 
     from shasta_tpu_torch import native as _native
 
@@ -119,7 +113,6 @@ def create_marker_graph_edges_strict(
         # Threaded native pass straight from the read store — no flat
         # expansion crosses memory.
         h, h2 = hh
-        _mark("hash_native")
     else:
         total = int(seq_len.sum())
         starts = np.concatenate(([0], np.cumsum(seq_len)))
@@ -137,7 +130,6 @@ def create_marker_graph_edges_strict(
         )
         b_flat = reads.rle_bases[idx_flat].astype(np.uint64)
         b_flat = np.where(comp[int_id], np.uint64(3) - b_flat, b_flat)
-        _mark("gather_bases")
         P1 = np.uint64(0x100000001B3)
         P2 = np.uint64(0x9E3779B97F4A7C15)
         max_len = int(seq_len.max()) if n_int else 0
@@ -164,7 +156,6 @@ def create_marker_graph_edges_strict(
         h[overlap] = sent
         h2[overlap] = sent
 
-    _mark("hash")
 
     # Group by (src, tgt, length, hash). Intervals enter already
     # sorted by (orid, ord0) — ``valid`` ascends in global marker id —
@@ -197,7 +188,6 @@ def create_marker_graph_edges_strict(
         src[order], tgt[order], orid[order], ord0[order], ord1[order]
     )
     h_s, h2_s, len_s = h[order], h2[order], seq_len[order]
-    _mark("sort")
     new_edge = np.empty(src.shape[0], dtype=bool)
     new_edge[0] = True
     new_edge[1:] = (
@@ -209,7 +199,6 @@ def create_marker_graph_edges_strict(
     )
     group = np.cumsum(new_edge) - 1
 
-    _mark("group")
     n_groups = int(group[-1]) + 1
     cov = np.bincount(group, minlength=n_groups)
     strand1 = np.bincount(group, weights=(orid & 1), minlength=n_groups)
@@ -331,8 +320,6 @@ def create_marker_graph_edges_strict(
         first = np.minimum.reduceat(np.where(ok, wpos, big), seg_start)
         rc_edge[multi] = flat[seg_start + np.where(first < big, first, 0)]
 
-    _mark("rc_match")
-    _prof.report(extra=f"n_int={n_int}")
     mg.source = e_src
     mg.target = e_tgt
     mg.coverage = e_cov

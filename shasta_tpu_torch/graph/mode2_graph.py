@@ -1250,11 +1250,6 @@ def run_assembly_graph2(
     """The full reference constructor sequence
     (reference: src/AssemblyGraph2.cpp:44-233). The graph must have an
     assembler installed (set_assembler) before calling."""
-    from shasta_tpu_torch.utils.perf import StageProf
-
-    _prof = StageProf("ag2")
-    _mark = _prof.mark
-
     import os as _os
 
     _skip = set(
@@ -1262,7 +1257,6 @@ def run_assembly_graph2(
     )
 
     g.create()
-    _mark("create")
     g.prune(p.prune_length)
     g.remove_short_loopback_edges(p.superbubble_edge_length_threshold)
     g.gather_bubbles()
@@ -1285,30 +1279,24 @@ def run_assembly_graph2(
         )
         g.merge(False, False)
     g.store_read_information()
-    _mark("store_read_information")
     if "weak" not in _skip:
         g.remove_weak_branches(p.strong_branch_threshold)
         g.merge(True, False)
     g.gather_bubbles()
     g.force_maximum_ploidy(2)
     g.assemble_all()
-    _mark("assemble_all")
     g.remove_degenerate_branches()
     g.merge(True, True)
     g.prune(p.prune_length)
     n_bad = 0
     if "bad" not in _skip:
         n_bad = remove_bad_bubbles_iterative(g, p)
-    _mark("removeBadBubblesIterative")
     hierarchical_phase(g, p)
-    _mark("hierarchicalPhase")
     g.prune(p.prune_length)
     g.find_bubble_chains()
     g.find_phasing_regions()
     g.store_gfa_sequence()
-    _mark("chains_gfa")
     _debug_dump_phasing(g)
-    _prof.report()
     transitions, transversions, non_snp = g.het_snp_statistics()
     diploid = sum(1 for e in g.edges.values() if e.ploidy == 2)
     phased = sum(

@@ -43,7 +43,7 @@ import torch
 
 from shasta_tpu_torch.ops import align_kernel as AK
 from shasta_tpu_torch.parallel.context import current_mesh
-from shasta_tpu_torch.utils.perf import StageProf
+from shasta_tpu_torch.utils.perf import span
 
 
 @dataclass
@@ -549,6 +549,21 @@ def _entry_dev_bytes(entry) -> int:
     return 0
 
 
+def _fetch(t: torch.Tensor, nonneg: bool = False):
+    """Device tensor ``t`` on the host, under the span ``stage:align.fetch``
+    (the host's wait for the device, then the pageable copy): ``t`` as
+    int64; with ``nonneg``, (rows, cols, vals) of its entries >= 0 in
+    row-major order, rows and cols int64 from ``nonzero`` on the device,
+    vals int64."""
+    with span("stage:align.fetch"):
+        if not nonneg:
+            return t.cpu().numpy().astype(np.int64)
+        nz = (t >= 0).nonzero()
+        vals = t[nz[:, 0], nz[:, 1]]
+        rows, cols = nz[:, 0].cpu().numpy(), nz[:, 1].cpu().numpy()
+        return rows, cols, vals.cpu().numpy().astype(np.int64)
+
+
 def _entry_to_flat(entry):
     """Metrics and flat matches of one unfiltered batch: (met (n, 10)
     int64, rows, cols, vals), rows batch-local ascending, cols/vals the
@@ -557,13 +572,7 @@ def _entry_to_flat(entry):
     kind, fused, _n = entry
     if kind != "p2":
         raise ValueError(f"not an unfiltered phase-2 batch: {kind!r}")
-    met = fused[:, :10].cpu().numpy().astype(np.int64)
-    mj = fused[:, 16:]
-    nz = (mj >= 0).nonzero()
-    vals = mj[nz[:, 0], nz[:, 1]]
-    rows = nz[:, 0].cpu().numpy()
-    cols = nz[:, 1].cpu().numpy()
-    return met, rows, cols, vals.cpu().numpy().astype(np.int64)
+    return (_fetch(fused[:, :10]), *_fetch(fused[:, 16:], nonneg=True))
 
 
 # ---------------------------------------------------------------------------
@@ -754,17 +763,13 @@ class _CsrStreamingRunner:
         matches of the pairs ``keep_fn`` keeps (compacted on device)."""
         tags, entry = self.batches[i]
         fused = entry[1]
-        met = fused[:, :10].cpu().numpy().astype(np.int64)
+        met = _fetch(fused[:, :10])
         sel = np.flatnonzero(np.asarray(keep_fn(tags, met), bool))
         rows = cols = vals = np.zeros(0, np.int64)
         if sel.shape[0]:
             idx = torch.from_numpy(sel).to(fused.device)
-            mjk = fused.index_select(0, idx)[:, 16:]
-            nz = (mjk >= 0).nonzero()
-            v = mjk[nz[:, 0], nz[:, 1]]
-            rows = sel[nz[:, 0].cpu().numpy()]
-            cols = nz[:, 1].cpu().numpy()
-            vals = v.cpu().numpy().astype(np.int64)
+            rows, cols, vals = _fetch(fused.index_select(0, idx)[:, 16:], nonneg=True)
+            rows = sel[rows]
         self._dev_bytes -= _entry_dev_bytes(entry)
         self.batches[i][1] = ("kept", (met, rows, cols, vals), entry[2])
 
@@ -837,95 +842,99 @@ def align_candidates(
     or0 = read_id0.astype(np.int64) << 1
     or1 = (read_id1.astype(np.int64) << 1) | (~same_strand).astype(np.int64)
 
-    koff = np.asarray(markers.offsets, np.int64)
-    klen = np.diff(koff)
-    kmer_flat = markers.kmer_ids.astype(np.int32)
-    n_or = markers.oriented_read_count
+    with span("stage:align.prep"):
+        koff = np.asarray(markers.offsets, np.int64)
+        klen = np.diff(koff)
+        kmer_flat = markers.kmer_ids.astype(np.int32)
+        n_or = markers.oriented_read_count
 
-    # Downsampled markers as one CSR; ds_ord_flat maps each back to its
-    # original ordinal (reference: AssemblerAlign3.cpp:76-80).
-    prof = StageProf("align")
-    ds_threshold = np.uint32(
-        min(int(params.downsampling_factor * float(2**32)), 2**32 - 1)
-    )
-    ds_sel = np.flatnonzero(ds_hash_table[markers.kmer_ids] < ds_threshold)
-    orid_of_sel = np.searchsorted(koff, ds_sel, side="right") - 1
-    ds_kmer_flat = kmer_flat[ds_sel]
-    ds_ord_flat = ds_sel - koff[orid_of_sel]
-    ds_len = np.bincount(orid_of_sel, minlength=n_or).astype(np.int64)
-    ds_off = np.zeros(n_or + 1, np.int64)
-    np.cumsum(ds_len, out=ds_off[1:])
-
-    la_ds = ds_len[or0]
-    lb_ds = ds_len[or1]
-    run_idx = np.flatnonzero((la_ds > 0) & (lb_ds > 0))
-    prof.mark("ds_prep")
-
-    def keep_fn(tags, met):
-        return _keep_mask_from_metrics(met, klen[or0[tags]], klen[or1[tags]], params)
-
-    runner = _CsrStreamingRunner(
-        kmer_flat, koff, klen, params, device, keep_fn=keep_fn
-    )
-    if run_idx.shape[0]:
-        # Phase 1 aligns the downsampled sequences over the full matrix,
-        # j - i in [-LA, LB] (reference: AssemblerAlign3.cpp:96-130).
-        widths_ds = la_ds[run_idx] + lb_ds[run_idx] + 1
-        bmins_ds = -la_ds[run_idx]
-        # Pairs wider than the widest W class are banded on the densest
-        # window of exact-match diagonals; pairs without any shared
-        # k-mer cannot align and are dropped.
-        wide = widths_ds > _W_BUCKETS[-1]
-        if wide.any():
-            wsel = np.flatnonzero(wide)
-            dmin, dmax, has = _dot_diag_band(
-                or0[run_idx[wsel]], or1[run_idx[wsel]],
-                ds_kmer_flat, ds_off, ds_len,
-                max_width=_W_BUCKETS[-1],
-            )
-            w2 = dmax - dmin + 3
-            use = has & (w2 <= _W_BUCKETS[-1])
-            bmins_ds[wsel[use]] = dmin[use] - 1
-            widths_ds[wsel[use]] = w2[use]
-            drop = wsel[~has]
-            if drop.shape[0]:
-                keep_mask = np.ones(run_idx.shape[0], bool)
-                keep_mask[drop] = False
-                run_idx = run_idx[keep_mask]
-                widths_ds = widths_ds[keep_mask]
-                bmins_ds = bmins_ds[keep_mask]
-        key_mat = np.stack(
-            [
-                _bucket_vec(la_ds[run_idx], _LEN_BUCKETS),
-                _bucket_vec(lb_ds[run_idx], _LEN_BUCKETS),
-                _bucket_vec(widths_ds, _W_BUCKETS),
-            ],
-            axis=1,
+        # Downsampled markers as one CSR; ds_ord_flat maps each back to its
+        # original ordinal (reference: AssemblerAlign3.cpp:76-80).
+        ds_threshold = np.uint32(
+            min(int(params.downsampling_factor * float(2**32)), 2**32 - 1)
         )
-        uk, inv = np.unique(key_mat, axis=0, return_inverse=True)
-        inv = inv.reshape(-1)
-        ds_dev_csr = _DeviceCsr(
-            ds_kmer_flat, ds_off, ds_len, device, aux=ds_ord_flat
+        ds_sel = np.flatnonzero(ds_hash_table[markers.kmer_ids] < ds_threshold)
+        orid_of_sel = np.searchsorted(koff, ds_sel, side="right") - 1
+        ds_kmer_flat = kmer_flat[ds_sel]
+        ds_ord_flat = ds_sel - koff[orid_of_sel]
+        ds_len = np.bincount(orid_of_sel, minlength=n_or).astype(np.int64)
+        ds_off = np.zeros(n_or + 1, np.int64)
+        np.cumsum(ds_len, out=ds_off[1:])
+
+        la_ds = ds_len[or0]
+        lb_ds = ds_len[or1]
+        run_idx = np.flatnonzero((la_ds > 0) & (lb_ds > 0))
+
+        def keep_fn(tags, met):
+            return _keep_mask_from_metrics(met, klen[or0[tags]], klen[or1[tags]], params)
+
+        runner = _CsrStreamingRunner(
+            kmer_flat, koff, klen, params, device, keep_fn=keep_fn
         )
-        ph1 = []
-        for ki in range(uk.shape[0]):
-            sel = np.flatnonzero(inv == ki)
-            idxs = run_idx[sel]
-            la_k, lb_k, w_k = (int(x) for x in uk[ki])
-            # Centre each pair's band inside the padded width.
-            bm = (bmins_ds[sel] - (w_k - widths_ds[sel]) // 2).astype(np.int32)
-            pending = _dispatch_csr(
-                ds_dev_csr, or0[idxs], or1[idxs], bm, w_k, la_k, lb_k, params,
-                band_fused=True,
+
+    # Phase 1 aligns the downsampled sequences over the full matrix,
+    # j - i in [-LA, LB] (reference: AssemblerAlign3.cpp:96-130).
+    ph1 = []
+    ds_dev_csr = None
+    with span("stage:align.phase1"):
+        if run_idx.shape[0]:
+            widths_ds = la_ds[run_idx] + lb_ds[run_idx] + 1
+            bmins_ds = -la_ds[run_idx]
+            # Pairs wider than the widest W class are banded on the densest
+            # window of exact-match diagonals; pairs without any shared
+            # k-mer cannot align and are dropped.
+            wide = widths_ds > _W_BUCKETS[-1]
+            if wide.any():
+                wsel = np.flatnonzero(wide)
+                dmin, dmax, has = _dot_diag_band(
+                    or0[run_idx[wsel]], or1[run_idx[wsel]],
+                    ds_kmer_flat, ds_off, ds_len,
+                    max_width=_W_BUCKETS[-1],
+                )
+                w2 = dmax - dmin + 3
+                use = has & (w2 <= _W_BUCKETS[-1])
+                bmins_ds[wsel[use]] = dmin[use] - 1
+                widths_ds[wsel[use]] = w2[use]
+                drop = wsel[~has]
+                if drop.shape[0]:
+                    keep_mask = np.ones(run_idx.shape[0], bool)
+                    keep_mask[drop] = False
+                    run_idx = run_idx[keep_mask]
+                    widths_ds = widths_ds[keep_mask]
+                    bmins_ds = bmins_ds[keep_mask]
+            key_mat = np.stack(
+                [
+                    _bucket_vec(la_ds[run_idx], _LEN_BUCKETS),
+                    _bucket_vec(lb_ds[run_idx], _LEN_BUCKETS),
+                    _bucket_vec(widths_ds, _W_BUCKETS),
+                ],
+                axis=1,
             )
-            lo = 0
-            for entry in pending:
-                ph1.append((idxs[lo : lo + entry[2]], entry[1]))
-                lo += entry[2]
-        prof.mark("ph1_dispatch")
+            uk, inv = np.unique(key_mat, axis=0, return_inverse=True)
+            inv = inv.reshape(-1)
+            ds_dev_csr = _DeviceCsr(
+                ds_kmer_flat, ds_off, ds_len, device, aux=ds_ord_flat
+            )
+            for ki in range(uk.shape[0]):
+                sel = np.flatnonzero(inv == ki)
+                idxs = run_idx[sel]
+                la_k, lb_k, w_k = (int(x) for x in uk[ki])
+                # Centre each pair's band inside the padded width.
+                bm = (bmins_ds[sel] - (w_k - widths_ds[sel]) // 2).astype(np.int32)
+                pending = _dispatch_csr(
+                    ds_dev_csr, or0[idxs], or1[idxs], bm, w_k, la_k, lb_k, params,
+                    band_fused=True,
+                )
+                lo = 0
+                for entry in pending:
+                    ph1.append((idxs[lo : lo + entry[2]], entry[1]))
+                    lo += entry[2]
+
+    # Phase 2 in the bands phase 1 found, dispatched as each band batch
+    # reaches the host.
+    with span("stage:align.phase2"):
         for idx_arr, band_dev in ph1:
-            arr = band_dev.cpu().numpy().astype(np.int64)
-            prof.mark("ph1_collect", accumulate=True)
+            arr = _fetch(band_dev)
             cnt = arr[:, 0]
             bmin = arr[:, 1] - params.band_extend
             bmax = arr[:, 2] + params.band_extend
@@ -936,74 +945,71 @@ def align_candidates(
                 runner.add_many(
                     or0[ps], or1[ps], -bmax[sel], bmax[sel] - bmin[sel] + 1, ps
                 )
-            prof.mark("ph1_bands_ph2_dispatch", accumulate=True)
         del ds_dev_csr, ph1
-    runner.flush_all()
-    prof.mark("ph2_flush")
+        runner.flush_all()
 
-    # Phase-2 collection in two sweeps: the metrics first, which size
-    # the output CSR, then each batch's kept matches scatter into it.
-    met_of = np.zeros((n_pairs, 10), np.int64)
-    seen = np.zeros(n_pairs, bool)
-    for tags, met in runner.collect_filtered_metrics(keep_fn):
-        met_of[tags] = met
-        seen[tags] = True
-    prof.mark("ph2_metrics")
+    with span("stage:align.collect"):
+        # Phase-2 collection in two sweeps: the metrics first, which size
+        # the output CSR, then each batch's kept matches scatter into it.
+        met_of = np.zeros((n_pairs, 10), np.int64)
+        seen = np.zeros(n_pairs, bool)
+        for tags, met in runner.collect_filtered_metrics(keep_fn):
+            met_of[tags] = met
+            seen[tags] = True
 
-    full_idx = np.flatnonzero(seen)
-    metrics = met_of[full_idx]
-    mc = metrics[:, 0]
-    first0, last0 = metrics[:, 1], metrics[:, 2]
-    first1, last1 = metrics[:, 3], metrics[:, 4]
-    omin, omax = metrics[:, 5], metrics[:, 6]
-    mskip, mdrift = metrics[:, 7], metrics[:, 8]
-    n0 = klen[or0[full_idx]]
-    n1 = klen[or1[full_idx]]
+        full_idx = np.flatnonzero(seen)
+        metrics = met_of[full_idx]
+        mc = metrics[:, 0]
+        first0, last0 = metrics[:, 1], metrics[:, 2]
+        first1, last1 = metrics[:, 3], metrics[:, 4]
+        omin, omax = metrics[:, 5], metrics[:, 6]
+        mskip, mdrift = metrics[:, 7], metrics[:, 8]
+        n0 = klen[or0[full_idx]]
+        n1 = klen[or1[full_idx]]
 
-    keep = _keep_mask_from_metrics(metrics, n0, n1, params)
-    kept_t = np.flatnonzero(keep)
-    kept_p = full_idx[kept_t]
+        keep = _keep_mask_from_metrics(metrics, n0, n1, params)
+        kept_t = np.flatnonzero(keep)
+        kept_p = full_idx[kept_t]
 
-    offs = np.zeros(kept_t.shape[0] + 1, np.int64)
-    np.cumsum(mc[kept_t], out=offs[1:])
-    # Ordinals are uint16 when no oriented read has more than 65,535
-    # markers, else uint32 (the stage hash covers the dtype).
-    ord_dtype = np.uint16 if int(klen.max(initial=0)) <= 0xFFFF else np.uint32
-    ord0 = np.empty(int(offs[-1]), ord_dtype)
-    ord1 = np.empty(int(offs[-1]), ord_dtype)
-    rank = np.full(n_pairs, -1, np.int64)
-    rank[kept_p] = np.arange(kept_p.shape[0])
-    for tags, rows, cols, vals in runner.collect_filtered_matches():
-        if rows.shape[0] == 0:
-            continue
-        pr = rank[tags[rows]]
-        m = pr >= 0
-        if not m.any():
-            continue
-        starts = np.searchsorted(rows, np.arange(tags.shape[0] + 1))
-        within = np.arange(rows.shape[0], dtype=np.int64) - starts[rows]
-        pos = offs[pr[m]] + within[m]
-        ord0[pos] = cols[m]
-        ord1[pos] = vals[m]
-    prof.mark("ph2_collect")
-    prof.report(extra=f"pairs={n_pairs}")
+        offs = np.zeros(kept_t.shape[0] + 1, np.int64)
+        np.cumsum(mc[kept_t], out=offs[1:])
+        # Ordinals are uint16 when no oriented read has more than 65,535
+        # markers, else uint32 (the stage hash covers the dtype).
+        ord_dtype = np.uint16 if int(klen.max(initial=0)) <= 0xFFFF else np.uint32
+        ord0 = np.empty(int(offs[-1]), ord_dtype)
+        ord1 = np.empty(int(offs[-1]), ord_dtype)
+        rank = np.full(n_pairs, -1, np.int64)
+        rank[kept_p] = np.arange(kept_p.shape[0])
+        for tags, rows, cols, vals in runner.collect_filtered_matches():
+            if rows.shape[0] == 0:
+                continue
+            pr = rank[tags[rows]]
+            m = pr >= 0
+            if not m.any():
+                continue
+            starts = np.searchsorted(rows, np.arange(tags.shape[0] + 1))
+            within = np.arange(rows.shape[0], dtype=np.int64) - starts[rows]
+            pos = offs[pr[m]] + within[m]
+            ord0[pos] = cols[m]
+            ord1[pos] = vals[m]
 
-    return AlignmentStore(
-        read_id0=read_id0[kept_p].astype(np.int32),
-        read_id1=read_id1[kept_p].astype(np.int32),
-        same_strand=same_strand[kept_p].astype(bool),
-        marker_count=mc[kept_t].astype(np.int32),
-        n_markers0=n0[kept_t].astype(np.int32),
-        n_markers1=n1[kept_t].astype(np.int32),
-        first0=first0[kept_t].astype(np.int32),
-        last0=last0[kept_t].astype(np.int32),
-        first1=first1[kept_t].astype(np.int32),
-        last1=last1[kept_t].astype(np.int32),
-        min_offset=omin[kept_t].astype(np.int32),
-        max_offset=omax[kept_t].astype(np.int32),
-        max_skip_v=mskip[kept_t].astype(np.int32),
-        max_drift_v=mdrift[kept_t].astype(np.int32),
-        ord0=ord0,
-        ord1=ord1,
-        offsets=offs,
-    )
+        return AlignmentStore(
+            read_id0=read_id0[kept_p].astype(np.int32),
+            read_id1=read_id1[kept_p].astype(np.int32),
+            same_strand=same_strand[kept_p].astype(bool),
+            marker_count=mc[kept_t].astype(np.int32),
+            n_markers0=n0[kept_t].astype(np.int32),
+            n_markers1=n1[kept_t].astype(np.int32),
+            first0=first0[kept_t].astype(np.int32),
+            last0=last0[kept_t].astype(np.int32),
+            first1=first1[kept_t].astype(np.int32),
+            last1=last1[kept_t].astype(np.int32),
+            min_offset=omin[kept_t].astype(np.int32),
+            max_offset=omax[kept_t].astype(np.int32),
+            max_skip_v=mskip[kept_t].astype(np.int32),
+            max_drift_v=mdrift[kept_t].astype(np.int32),
+            ord0=ord0,
+            ord1=ord1,
+            offsets=offs,
+        )
+

@@ -45,7 +45,7 @@ from shasta_tpu_torch.ops import lowhash as LH
 from shasta_tpu_torch.ops.align import AlignParams, AlignmentStore, align_candidates
 from shasta_tpu_torch.ops.align_kernel import resolve_device
 from shasta_tpu_torch.pipeline.config import AssemblyConfig
-from shasta_tpu_torch.utils.perf import PerformanceLog, malloc_trim
+from shasta_tpu_torch.utils.perf import PerformanceLog, malloc_trim, span
 from shasta_tpu_torch.consensus.caller import get_consensus_caller
 
 
@@ -510,16 +510,17 @@ class Assembler:
                     self.kmer_table.downsampling_hash_table(),
                     device=self.device,
                 )
-            # reference: Alignment::checkStrictlyIncreasing
-            # (src/Alignment.hpp:48), enforced after every compute.
-            if not self.alignments.check_strictly_increasing():
-                raise RuntimeError(
-                    "Alignment ordinals are not strictly increasing; "
-                    "this indicates a bug in the alignment kernel."
-                )
-            self.store.save_stage("Alignments", self.alignments.arrays())
-            gc.collect()
-            malloc_trim()
+            with span("stage:align.store"):
+                # reference: Alignment::checkStrictlyIncreasing
+                # (src/Alignment.hpp:48), enforced after every compute.
+                if not self.alignments.check_strictly_increasing():
+                    raise RuntimeError(
+                        "Alignment ordinals are not strictly increasing; "
+                        "this indicates a bug in the alignment kernel."
+                    )
+                self.store.save_stage("Alignments", self.alignments.arrays())
+                gc.collect()
+                malloc_trim()
 
     def release_candidates(self) -> None:
         """Drop the in-memory candidate pairs (persisted in the stage
@@ -619,18 +620,6 @@ class Assembler:
             self.store.save_stage("ReadGraph", self.read_graph.arrays())
 
     def create_marker_graph_vertices(self) -> None:
-        import time as _time
-
-        _prof = bool(os.environ.get("SHASTA_TORCH_PROF"))
-        _t0 = _time.monotonic()
-
-        def _mark(name):
-            nonlocal _t0
-            if _prof:
-                t = _time.monotonic()
-                print(f"[mgv prof] {name} {t - _t0:.1f}s", flush=True)
-                _t0 = t
-
         cm = self.config.marker_graph
         with self.log.stage("createMarkerGraphVertices"):
             labels = None
@@ -648,13 +637,11 @@ class Assembler:
                     self.markers, self.read_graph, self.alignments,
                     self.reads.is_chimeric,
                 )
-                _mark("unite_stream")
             if labels is None:
                 u, v = MG.gather_unite_pairs(
                     self.markers, self.read_graph, self.alignments,
                     self.reads.is_chimeric,
                 )
-                _mark("gather_unite_pairs")
             if not (
                 self.config.assembly.iterative
                 and self.config.assembly.mode == 0
@@ -701,7 +688,6 @@ class Assembler:
                     min_area_fraction=cm.peak_finder_min_area_fraction,
                     area_start_index=cm.peak_finder_area_start_index,
                 )
-                _mark("auto_min_coverage")
                 self.log.line(f"Automatically selected MarkerGraph.minCoverage = {min_cov}")
             self.min_coverage_used = min_cov
             self.marker_graph = MG.create_marker_graph_vertices(
@@ -714,7 +700,6 @@ class Assembler:
                 allow_duplicate_markers=cm.allow_duplicate_markers,
                 labels=labels,
             )
-            _mark("create_vertices")
             MG.audit_strand_symmetry(self.marker_graph, "vertex creation")
             # reference: checkMarkerGraphVertices (Assembler.hpp:1275)
             if not MG.check_marker_graph_vertices(self.marker_graph):
@@ -722,7 +707,6 @@ class Assembler:
                     "Marker graph vertexTable/vertices inconsistency "
                     "after vertex creation."
                 )
-            _mark("audit")
         if cm.allow_duplicate_markers and cm.cleanup_duplicate_markers:
             # (reference: srcMain/main.cpp:925-934)
             with self.log.stage("cleanupDuplicateMarkers"):

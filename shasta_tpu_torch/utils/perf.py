@@ -1,6 +1,6 @@
 """Stage tracing: timestamped begin/end lines, like the reference's
 performance.log (reference: src/performanceLog.hpp:10-14, stage lines
-e.g. src/AssemblerMarkerGraph.cpp:75)."""
+e.g. src/AssemblerMarkerGraph.cpp:75), and the program's spans."""
 
 from __future__ import annotations
 
@@ -9,6 +9,22 @@ import datetime
 import sys
 import time
 from typing import Dict, List, Optional, TextIO
+
+import torch
+
+
+def span(name: str):
+    """A named range of the program's host time: under a running
+    ``torch.profiler`` it lands in the same trace, on the same clock, as
+    the device's kernels and copies; with none running it records
+    nothing and skips ``record_function``'s op dispatch.
+    Around an asynchronous launch it times the enqueue, not the
+    device's work. Names start with ``stage:``: where the profiler's
+    events carry no activity type (torch 2.11), ``perfbench/trace.py``
+    tells a program span from device work by that prefix alone."""
+    if not torch.autograd._profiler_enabled():
+        return contextlib.nullcontext()
+    return torch.profiler.record_function(name)
 
 
 def rss_mb() -> float:
@@ -117,7 +133,8 @@ class PerformanceLog:
             hwm_ok = reset_peak_rss()
         t0 = time.monotonic()
         try:
-            yield
+            with span(f"stage:{name}"):
+                yield
         finally:
             dt = time.monotonic() - t0
             self.stage_seconds[name] = self.stage_seconds.get(name, 0.0) + dt
@@ -177,55 +194,3 @@ class Tee:
         if self._f:
             self._f.flush()
 
-
-class StageProf:
-    """Env-gated stage timer (SHASTA_TORCH_PROF=1 prints per-stage wall
-    times to stderr; no-op otherwise). One shared implementation for
-    align_candidates, strict edge creation and the AssemblyGraph2
-    ladder."""
-
-    def __init__(self, tag: str):
-        import os
-
-        self.tag = tag
-        self.enabled = bool(os.environ.get("SHASTA_TORCH_PROF"))
-        if self.enabled:
-            import time as _time
-
-            self._time = _time.perf_counter
-            self._t0 = self._time()
-            self._acc = {}
-            self._order = []
-
-    def mark(self, name: str, accumulate: bool = False) -> None:
-        if not self.enabled:
-            return
-        now = self._time()
-        dt = now - self._t0
-        self._t0 = now
-        if name in self._acc:
-            if accumulate:
-                self._acc[name] += dt
-            else:
-                self._acc[name] = dt
-        else:
-            self._acc[name] = dt
-            self._order.append(name)
-
-    def report(self, extra: str = "") -> None:
-        if not self.enabled:
-            return
-        import os
-        import sys
-
-        total = sum(self._acc.values())
-        parts = " ".join(f"{k}={self._acc[k]:.3f}s" for k in self._order)
-        mem = ""
-        if os.environ.get("SHASTA_TORCH_MEMPROF"):
-            mem = f" rss={rss_mb():.0f}MB peak={peak_rss_mb():.0f}MB"
-        print(
-            f"[{self.tag} prof]{' ' + extra if extra else ''} "
-            f"total={total:.3f}s {parts}{mem}",
-            file=sys.stderr,
-            flush=True,
-        )
