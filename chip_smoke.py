@@ -36,7 +36,8 @@ no result line):
    cluster, in two strips),
    the edge-case, long-gap and mixed-length batches: exact int32
    equality of each kernel's output and of the fused (B, 16 + LA)
-   result. banded_fwd runs both its bodies where W <= DIAG_W_LIMIT
+   result, and of match_compact's CSR (every other row kept, uint16 and
+   uint32) at each of those shapes. banded_fwd runs both its bodies where W <= DIAG_W_LIMIT
    (the anti-diagonal body and the row-scan body, timed in turns in this
    call), banded_fwd_waves runs at waves 2 and 4 wherever fwd_kernel
    gives it (the anti-diagonal body's shapes up to W 2048); times, Gcells/s, the nominal and the
@@ -753,6 +754,26 @@ def check_kernels(host, LA, W, plain=None, pmj=None):
     return (a, a_len, b, b_len, bm), plain, pfused, max(errs.values())
 
 
+def check_match_compact(fused):
+    """match_compact against its plain version on a fused batch on the
+    card, every other row kept, at uint16 (int16 storage) and uint32
+    (int32) output."""
+    from shasta_tpu_torch.ops import align_kernel as K
+
+    kept = torch.arange(fused.shape[0], device=fused.device) % 2 == 0
+    cnt = torch.where(kept, fused[:, 0].to(torch.int64), 0)
+    dst = torch.where(kept, torch.cumsum(cnt, 0) - cnt, -1)
+    n = int(cnt.sum())
+    for dt in (torch.int16, torch.int32):
+        got = [torch.zeros(n, dtype=dt, device=fused.device) for _ in range(2)]
+        ref = [torch.zeros(n, dtype=dt, device=fused.device) for _ in range(2)]
+        K.match_compact(fused, dst, *got)
+        K.match_compact_plain(fused, dst, *ref)
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, r) for g, r in zip(got, ref)):
+            raise AssertionError(f"match_compact != plain ({dt}) at {tuple(fused.shape)}")
+
+
 def phase_kernels(sm_clock_mhz):
     from shasta_tpu_torch.ops import align_kernel as K
 
@@ -795,6 +816,7 @@ def phase_kernels(sm_clock_mhz):
         n_matched = int(pfused[:, 0].sum())
         if n_matched == 0 and LA > 1:
             raise AssertionError(f"no matches at LA={LA} W={W}: a vacuous check")
+        check_match_compact(pfused)
 
         # Times: the anti-diagonal body (where it takes W) and the
         # row-scan body in turns (rows, diag, diag, rows), the traceback,
@@ -849,7 +871,7 @@ def phase_kernels(sm_clock_mhz):
         log(
             f"kernel {label}"
             + (f" LB={LB}" if LB != LA else "")
-            + f": equal (matches {n_matched}); cells nominal {nominal}, in-matrix "
+            + f": equal, match_compact too (matches {n_matched}); cells nominal {nominal}, in-matrix "
             f"{cells} ({cells / max(1, nominal):.1%}); fwd ({body}) {fwd_ms:.3f} ms; "
             f"anti-diagonal body "
             + (f"{diag_ms:.3f} ms ({fwd_bound / diag_ms:.1%} of bound)" if both else "-")

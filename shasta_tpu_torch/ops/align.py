@@ -364,6 +364,16 @@ _MAT_MB_DEFAULT = 16384
 _DEVQ_MB_DEFAULT = 8192
 
 
+# The largest marker count of an oriented read whose store keeps its
+# ordinals as uint16 (else uint32).
+_ORD16_MAX = 0xFFFF
+
+# Phase-2 batches of the last align_candidates call by route of their
+# matches: written into the store on the device, or drained early and
+# scattered on the host (plain integers; compute_alignments logs them).
+COLLECT = {"device": 0, "host": 0}
+
+
 def _budget_mb(var: str, default: int) -> int:
     """A device budget in MiB from ``var`` (else ``default``), divided by
     the ranks of the current mesh that share this rank's device."""
@@ -549,13 +559,16 @@ def _entry_dev_bytes(entry) -> int:
     return 0
 
 
-def _fetch(t: torch.Tensor, nonneg: bool = False):
+def _fetch(t: torch.Tensor, nonneg: bool = False, view=None):
     """Device tensor ``t`` on the host, under the span ``stage:align.fetch``
     (the host's wait for the device, then the pageable copy): ``t`` as
-    int64; with ``nonneg``, (rows, cols, vals) of its entries >= 0 in
-    row-major order, rows and cols int64 from ``nonzero`` on the device,
-    vals int64."""
+    int64; with ``view``, its bytes as that numpy dtype, uncopied; with
+    ``nonneg``, (rows, cols, vals) of its entries >= 0 in row-major
+    order, rows and cols int64 from ``nonzero`` on the device, vals
+    int64."""
     with span("stage:align.fetch"):
+        if view is not None:
+            return t.cpu().numpy().view(view)
         if not nonneg:
             return t.cpu().numpy().astype(np.int64)
         nz = (t >= 0).nonzero()
@@ -687,7 +700,13 @@ class _CsrStreamingRunner:
     pairs' matches are compacted on the device and fetched. A drained
     batch has no unfiltered output left, so :meth:`collect_flat` raises
     on it, and :meth:`collect_filtered_metrics` refuses a different
-    filter than the one it was drained with."""
+    filter than the one it was drained with.
+
+    The filtered collection builds the kept pairs' CSR on the device:
+    one fetch of every undrained batch's metrics, the CSR's offsets on
+    the host, then :func:`align_kernel.match_compact` writes each batch's
+    kept matches into it, and the store's two arrays are fetched once
+    each. Only the drained batches' matches scatter on the host."""
 
     def __init__(self, flat, off, lens, params: AlignParams, device, keep_fn=None):
         self.lens = np.asarray(lens, np.int64)
@@ -759,8 +778,8 @@ class _CsrStreamingRunner:
             self._flush(key)
 
     def _compact(self, i: int, keep_fn) -> None:
-        """Replace batch i's device output by its host metrics and the
-        matches of the pairs ``keep_fn`` keeps (compacted on device)."""
+        """Replace batch i's device output by its host metrics, the rows
+        ``keep_fn`` keeps, and their matches (compacted on device)."""
         tags, entry = self.batches[i]
         fused = entry[1]
         met = _fetch(fused[:, :10])
@@ -771,7 +790,7 @@ class _CsrStreamingRunner:
             rows, cols, vals = _fetch(fused.index_select(0, idx)[:, 16:], nonneg=True)
             rows = sel[rows]
         self._dev_bytes -= _entry_dev_bytes(entry)
-        self.batches[i][1] = ("kept", (met, rows, cols, vals), entry[2])
+        self.batches[i][1] = ("kept", (met, sel, rows, cols, vals), entry[2])
 
     def _maybe_drain(self):
         while (
@@ -796,28 +815,89 @@ class _CsrStreamingRunner:
             yield (tags, *_entry_to_flat(entry))
 
     def collect_filtered_metrics(self, keep_fn):
-        """Sweep 1: compact every batch not drained yet with ``keep_fn``
-        and return [(tags, met)] for every batch. Batches drained during
-        dispatch were filtered with the runner's own ``keep_fn``; a
-        different filter here would leave them filtered by the wrong
-        one, so it raises."""
+        """Sweep 1: [(tags, met)] for every batch, the metrics of those
+        not drained yet in one fetch, and each batch's rows that
+        ``keep_fn`` keeps. Batches drained during dispatch were filtered
+        with the runner's own ``keep_fn``; a different filter here would
+        leave them filtered by the wrong one, so it raises."""
         if self.drained and keep_fn is not self.keep_fn:
             raise ValueError(
                 "collect_filtered_metrics: batches were already drained with "
                 "the runner's keep_fn; pass that same function"
             )
-        for i in range(len(self.batches)):
-            if self.batches[i][1][0] == "p2":
-                self._compact(i, keep_fn)
+        live = [b for b in self.batches if b[1][0] == "p2"]
+        if live:
+            met_all = _fetch(torch.cat([entry[1][:, :10] for _t, entry in live]))
+            lo = 0
+            for b in live:
+                tags, (_kind, fused, n) = b
+                met = met_all[lo : lo + n]
+                lo += n
+                sel = np.flatnonzero(np.asarray(keep_fn(tags, met), bool))
+                b[1] = ("met", (met, sel, fused), n)
         return [(tags, entry[1][0]) for tags, entry in self.batches]
 
-    def collect_filtered_matches(self):
-        """Sweep 2: yield (tags, rows, cols, vals) per batch, restricted
-        to kept pairs (rows batch-local ascending, path order)."""
+    def collect_filtered_matches(self, ord_dtype):
+        """Sweep 2, after :meth:`collect_filtered_metrics`: the kept
+        pairs' matches as one CSR in ascending tag order, (kept tags,
+        offsets (n + 1,) int64, ord0, ord1 of ``ord_dtype``), and the
+        batches collected by each route, {"device": n, "host": n}. The
+        undrained batches' matches are written on the device, one
+        :func:`align_kernel.match_compact` launch each (their rows'
+        destinations uploaded at once), and the store's two arrays
+        fetched; the drained batches' matches scatter on the host."""
+        if any(entry[0] == "p2" for _t, entry in self.batches):
+            raise RuntimeError(
+                "collect_filtered_matches: call collect_filtered_metrics first"
+            )
         batches, self.batches = self.batches, []
+        # entry: ("met", (met, sel, fused), n) or ("kept", (met, sel, rows,
+        # cols, vals), n), sel the batch's kept rows.
+        ktags = [tags[e[1][1]] for tags, e in batches]
+        kcnt = [e[1][0][e[1][1], 0] for _t, e in batches]
+        ktags = np.concatenate(ktags) if ktags else np.zeros(0, np.int64)
+        kcnt = np.concatenate(kcnt) if kcnt else np.zeros(0, np.int64)
+        order = np.argsort(ktags, kind="stable")
+        offs = np.zeros(ktags.shape[0] + 1, np.int64)
+        np.cumsum(kcnt[order], out=offs[1:])
+        # Each batch row's first slot in the CSR, -1 where it is not kept.
+        slot = np.empty(ktags.shape[0], np.int64)
+        slot[order] = offs[:-1]
+        dst, lo = [], 0
         for tags, entry in batches:
-            _met, rows, cols, vals = entry[1]
-            yield tags, rows, cols, vals
+            sel = entry[1][1]
+            d = np.full(tags.shape[0], -1, np.int64)
+            d[sel] = slot[lo : lo + sel.shape[0]]
+            lo += sel.shape[0]
+            dst.append(d)
+
+        total = int(offs[-1])
+        card = [i for i, (_t, e) in enumerate(batches) if e[0] == "met"]
+        host = [i for i, (_t, e) in enumerate(batches) if e[0] == "kept"]
+        if card:
+            dev = batches[card[0]][1][1][2].device
+            tdt = torch.int16 if np.dtype(ord_dtype).itemsize == 2 else torch.int32
+            ord0_d = torch.empty(total, dtype=tdt, device=dev)
+            ord1_d = torch.empty(total, dtype=tdt, device=dev)
+            dst_d = torch.from_numpy(np.concatenate([dst[i] for i in card])).to(dev)
+            lo = 0
+            for i in card:
+                fused = batches[i][1][1][2]
+                AK.match_compact(fused, dst_d[lo : lo + fused.shape[0]], ord0_d, ord1_d)
+                lo += fused.shape[0]
+            ord0 = _fetch(ord0_d, view=ord_dtype)
+            ord1 = _fetch(ord1_d, view=ord_dtype)
+        else:
+            ord0 = np.empty(total, ord_dtype)
+            ord1 = np.empty(total, ord_dtype)
+        for i in host:
+            _met, _sel, rows, cols, vals = batches[i][1][1]
+            # rows: batch-local and ascending, kept rows only.
+            starts = np.searchsorted(rows, np.arange(dst[i].shape[0] + 1))
+            pos = dst[i][rows] + np.arange(rows.shape[0]) - starts[rows]
+            ord0[pos] = cols
+            ord1[pos] = vals
+        return ktags[order], offs, ord0, ord1, {"device": len(card), "host": len(host)}
 
 
 def align_candidates(
@@ -949,65 +1029,42 @@ def align_candidates(
         runner.flush_all()
 
     with span("stage:align.collect"):
-        # Phase-2 collection in two sweeps: the metrics first, which size
-        # the output CSR, then each batch's kept matches scatter into it.
+        # Phase-2 collection in two sweeps: the metrics first, which keep
+        # or drop each pair and size the output CSR, then the kept pairs'
+        # matches written into it.
         met_of = np.zeros((n_pairs, 10), np.int64)
-        seen = np.zeros(n_pairs, bool)
         for tags, met in runner.collect_filtered_metrics(keep_fn):
             met_of[tags] = met
-            seen[tags] = True
+        # Ordinals are uint16 when no oriented read has more than 65,535
+        # markers, else uint32 (the stage hash covers the dtype).
+        ord_dtype = np.uint16 if int(klen.max(initial=0)) <= _ORD16_MAX else np.uint32
+        kept_p, offs, ord0, ord1, routes = runner.collect_filtered_matches(ord_dtype)
+        COLLECT.update(routes)
 
-        full_idx = np.flatnonzero(seen)
-        metrics = met_of[full_idx]
+        metrics = met_of[kept_p]
         mc = metrics[:, 0]
         first0, last0 = metrics[:, 1], metrics[:, 2]
         first1, last1 = metrics[:, 3], metrics[:, 4]
         omin, omax = metrics[:, 5], metrics[:, 6]
         mskip, mdrift = metrics[:, 7], metrics[:, 8]
-        n0 = klen[or0[full_idx]]
-        n1 = klen[or1[full_idx]]
-
-        keep = _keep_mask_from_metrics(metrics, n0, n1, params)
-        kept_t = np.flatnonzero(keep)
-        kept_p = full_idx[kept_t]
-
-        offs = np.zeros(kept_t.shape[0] + 1, np.int64)
-        np.cumsum(mc[kept_t], out=offs[1:])
-        # Ordinals are uint16 when no oriented read has more than 65,535
-        # markers, else uint32 (the stage hash covers the dtype).
-        ord_dtype = np.uint16 if int(klen.max(initial=0)) <= 0xFFFF else np.uint32
-        ord0 = np.empty(int(offs[-1]), ord_dtype)
-        ord1 = np.empty(int(offs[-1]), ord_dtype)
-        rank = np.full(n_pairs, -1, np.int64)
-        rank[kept_p] = np.arange(kept_p.shape[0])
-        for tags, rows, cols, vals in runner.collect_filtered_matches():
-            if rows.shape[0] == 0:
-                continue
-            pr = rank[tags[rows]]
-            m = pr >= 0
-            if not m.any():
-                continue
-            starts = np.searchsorted(rows, np.arange(tags.shape[0] + 1))
-            within = np.arange(rows.shape[0], dtype=np.int64) - starts[rows]
-            pos = offs[pr[m]] + within[m]
-            ord0[pos] = cols[m]
-            ord1[pos] = vals[m]
+        n0 = klen[or0[kept_p]]
+        n1 = klen[or1[kept_p]]
 
         return AlignmentStore(
             read_id0=read_id0[kept_p].astype(np.int32),
             read_id1=read_id1[kept_p].astype(np.int32),
             same_strand=same_strand[kept_p].astype(bool),
-            marker_count=mc[kept_t].astype(np.int32),
-            n_markers0=n0[kept_t].astype(np.int32),
-            n_markers1=n1[kept_t].astype(np.int32),
-            first0=first0[kept_t].astype(np.int32),
-            last0=last0[kept_t].astype(np.int32),
-            first1=first1[kept_t].astype(np.int32),
-            last1=last1[kept_t].astype(np.int32),
-            min_offset=omin[kept_t].astype(np.int32),
-            max_offset=omax[kept_t].astype(np.int32),
-            max_skip_v=mskip[kept_t].astype(np.int32),
-            max_drift_v=mdrift[kept_t].astype(np.int32),
+            marker_count=mc.astype(np.int32),
+            n_markers0=n0.astype(np.int32),
+            n_markers1=n1.astype(np.int32),
+            first0=first0.astype(np.int32),
+            last0=last0.astype(np.int32),
+            first1=first1.astype(np.int32),
+            last1=last1.astype(np.int32),
+            min_offset=omin.astype(np.int32),
+            max_offset=omax.astype(np.int32),
+            max_skip_v=mskip.astype(np.int32),
+            max_drift_v=mdrift.astype(np.int32),
             ord0=ord0,
             ord1=ord1,
             offsets=offs,

@@ -52,6 +52,11 @@ Contract (the JAX wrapper's, align_pallas.py:948-1017):
 16 metric columns of ``_metrics_from_mj`` (align_pallas.py:876), then the
 matched ordinal1 per ordinal0 (or -1).
 
+``match_compact`` (``csrc/match_compact.cu``) replaces no TPU kernel: it
+writes the kept rows' matches of a fused batch straight into the
+alignment store's CSR on the card, where the JAX package fetches them
+and scatters them on the host.
+
 A wrapper runs the plain PyTorch version only because its tensors lie on
 the CPU; on CUDA tensors it launches the kernels or raises.
 """
@@ -78,7 +83,12 @@ D_MATCH, D_MISMATCH, UP, LEFT = 0, 1, 2, 3
 # reads them to show the main path ran on the kernels).
 LAUNCHES = {"banded_fwd": 0, "banded_tb": 0, "banded_fwd_waves": 0}
 
-# Optional launch trace: when a caller sets this to a list, every CUDA
+# Launches of match_compact, its own count: LAUNCHES holds the DP kernels
+# alone (the benchmark sums its values into DP launches per candidate),
+# and TRACE prices every entry as a DP launch, so neither records it.
+COMPACT_LAUNCHES = 0
+
+# Optional launch trace: when a caller sets this to a list, every DP
 # launch appends (name, body, LA, W, B, work, start, end) with CUDA
 # events recorded around it on the current stream. body: "diag" or
 # "rows" for the forward kernels, "warp" for the traceback; work, for
@@ -250,6 +260,10 @@ def build_kernels(force: bool = False) -> float:
             # utils/peak.py's int32 ceiling (csrc/int32_peak.cu).
             lib.int32_chain_launch.argtypes = [vp, ci, ci, vp, vp]
             lib.int32_chain_launch.restype = ci
+            # match_compact_launch(fused, B, LA, dst, ord0, ord1,
+            # out_bytes, stream) (csrc/match_compact.cu).
+            lib.match_compact_launch.argtypes = [vp, ci, ci, vp, vp, vp, ci, vp]
+            lib.match_compact_launch.restype = ci
             _lib = lib
         return time.perf_counter() - t0
 
@@ -783,6 +797,61 @@ def band_reduce(
     omax = torch.where(matched, off, -(2**30)).max(dim=1).values
     cnt = matched.sum(dim=1, dtype=torch.int32)
     return torch.stack([cnt, omin.to(torch.int32), omax.to(torch.int32)], dim=1)
+
+
+def match_compact(fused, dst, ord0, ord1) -> None:
+    """Write the kept rows' matches of a fused batch into a flat CSR: for
+    each row b of ``fused`` ((B, 16 + LA) int32, as banded_align_pairs
+    gives it) with ``dst[b] >= 0``, its k-th match in column (path)
+    order goes to ``ord0[dst[b] + k]`` (the column, ordinal0) and
+    ``ord1[dst[b] + k]`` (its value, ordinal1). ``dst`` (B,) int64, -1
+    where the pair is not kept; ``ord0``, ``ord1`` flat int16 tensors
+    holding the store's uint16 ordinals, or int32 holding uint32. No
+    other element is written. CPU tensors run the plain version; CUDA
+    tensors launch ``csrc/match_compact.cu`` or raise."""
+    global COMPACT_LAUNCHES
+    if fused.device.type != "cuda":
+        return match_compact_plain(fused, dst, ord0, ord1)
+    dev = fused.device
+    if any(t.device != dev for t in (dst, ord0, ord1)):
+        raise ValueError("match_compact: all inputs must be on one device")
+    if fused.dim() != 2 or fused.shape[1] < 16 or fused.dtype != torch.int32:
+        raise ValueError(f"match_compact: fused must be (B, 16 + LA) int32, got "
+                         f"{tuple(fused.shape)} {fused.dtype}")
+    if dst.dtype != torch.int64 or tuple(dst.shape) != (fused.shape[0],):
+        raise ValueError(f"match_compact: dst must be ({fused.shape[0]},) int64, got "
+                         f"{tuple(dst.shape)} {dst.dtype}")
+    if ord0.dtype != ord1.dtype or ord0.dtype not in (torch.int16, torch.int32):
+        raise ValueError("match_compact: ord0 and ord1 must both be int16 or int32")
+    if not all(t.is_contiguous() for t in (fused, dst, ord0, ord1)):
+        raise ValueError("match_compact: inputs must be contiguous")
+    B, LA = fused.shape[0], fused.shape[1] - 16
+    if B == 0:
+        return
+    rc = library().match_compact_launch(
+        fused.data_ptr(), B, LA, dst.data_ptr(), ord0.data_ptr(), ord1.data_ptr(),
+        ord0.element_size(), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"match_compact launch failed (cudaError {rc}) at B={B} LA={LA}")
+    COMPACT_LAUNCHES += 1
+
+
+def match_compact_plain(fused, dst, ord0, ord1) -> None:
+    """The plain PyTorch version of :func:`match_compact`, on any device:
+    a nonzero over the kept rows' matches (row-major, so each row's in
+    column order) and one indexed write per array. Values are cast to
+    the arrays' int16/int32, which keeps the bits of uint16/uint32."""
+    dev = fused.device
+    rows = torch.nonzero(dst >= 0).flatten()
+    if rows.numel() == 0:
+        return
+    mj = fused.index_select(0, rows)[:, 16:]
+    r, c = torch.nonzero(mj >= 0, as_tuple=True)
+    first = torch.searchsorted(r, torch.arange(rows.numel(), device=dev))
+    pos = dst[rows][r] + torch.arange(r.numel(), device=dev) - first[r]
+    ord0[pos] = c.to(ord0.dtype)
+    ord1[pos] = mj[r, c].to(ord1.dtype)
 
 
 def resolve_device(device) -> torch.device:

@@ -42,7 +42,7 @@ from shasta_tpu_torch.graph import marker_graph as MG
 from shasta_tpu_torch.graph import read_graph as RG
 from shasta_tpu_torch.io import fasta as FIO
 from shasta_tpu_torch.ops import lowhash as LH
-from shasta_tpu_torch.ops.align import AlignParams, AlignmentStore, align_candidates
+from shasta_tpu_torch.ops.align import COLLECT, AlignParams, AlignmentStore, align_candidates
 from shasta_tpu_torch.ops.align_kernel import resolve_device
 from shasta_tpu_torch.pipeline.config import AssemblyConfig
 from shasta_tpu_torch.utils.perf import PerformanceLog, malloc_trim, span
@@ -509,6 +509,10 @@ class Assembler:
                     params,
                     self.kmer_table.downsampling_hash_table(),
                     device=self.device,
+                )
+                self.log.line(
+                    f"Phase-2 batches collected on the device: {COLLECT['device']}, "
+                    f"drained early and collected on the host: {COLLECT['host']}."
                 )
             with span("stage:align.store"):
                 # reference: Alignment::checkStrictlyIncreasing

@@ -25,7 +25,9 @@ from shasta_tpu_torch.ops import align as A
 from shasta_tpu_torch.ops import align_kernel as K
 from shasta_tpu_torch.ops import lowhash as LH
 from shasta_tpu_torch.utils import synth
-from tests.torch_common import one_torch_thread  # noqa: F401
+from tests.torch_common import (  # noqa: F401
+    compact_batch, compact_reference, one_torch_thread,
+)
 
 LH_PARAMS = dict(
     m=3, hash_fraction=0.05, iteration_count=10, min_frequency=2,
@@ -148,7 +150,9 @@ def test_fault_collect_filter_is_the_one_passed(inputs, monkeypatch):
     assert runner.drained == 0
     metas = runner.collect_filtered_metrics(keep_none)
     assert sum(m.shape[0] for _t, m in metas) == 12
-    assert all(r.shape[0] == 0 for _t, r, _c, _v in runner.collect_filtered_matches())
+    kept, offs, ord0, ord1, _routes = runner.collect_filtered_matches(np.uint16)
+    assert kept.shape[0] == 0 and ord0.shape[0] == ord1.shape[0] == 0
+    assert offs.tolist() == [0]
 
     monkeypatch.setenv("SHASTA_TORCH_DEVQ_MB", "0")
     drained = _small_runner(inputs, keep_all, 4, monkeypatch)
@@ -218,6 +222,104 @@ def test_fault_env_budgets_read_per_call_not_baked(inputs, monkeypatch):
         _assert_store_equal(A.align_candidates(*args, device="cpu"), ref)
         assert seen and set(seen) == {int(w)}
         seen.clear()
+
+
+@pytest.mark.parametrize("route", ["device", "host", "mixed"])
+def test_collect_routes_give_the_reference_store(inputs, monkeypatch, route):
+    """With 4-pair flushes (many batches), the kept matches written by
+    match_compact's plain version (the device route on the CPU), the
+    drained batches' matches scattered on the host (a device-queue
+    budget of 0), or both in one call (a budget that drains the oldest
+    batches and keeps the rest) give the JAX package's store. COLLECT
+    counts each route's batches."""
+    args, _cand, ref = inputs
+    runners = []
+
+    class Spy(A._CsrStreamingRunner):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            if route == "mixed":
+                self._drain_budget = 32 << 10
+            runners.append(self)
+
+        def collect_filtered_metrics(self, keep_fn):
+            self.n_batches = len(self.batches)
+            return super().collect_filtered_metrics(keep_fn)
+
+    monkeypatch.setattr(A, "_CsrStreamingRunner", Spy)
+    monkeypatch.setattr(A, "_FLUSH_PAIRS", 4)
+    if route == "host":
+        monkeypatch.setenv("SHASTA_TORCH_DEVQ_MB", "0")
+    got = A.align_candidates(*args, device="cpu")
+    _assert_store_equal(got, ref)
+    (runner,) = runners
+    assert A.COLLECT["host"] == runner.drained
+    assert A.COLLECT["device"] + A.COLLECT["host"] == runner.n_batches > 2
+    if route == "device":
+        assert A.COLLECT["host"] == 0
+    elif route == "host":
+        assert A.COLLECT["device"] == 0
+    else:
+        assert A.COLLECT["device"] > 0 and A.COLLECT["host"] > 0
+
+
+def test_plain_compact_equals_host_scatter(inputs, monkeypatch):
+    """On the fixture, the store's ord0, ord1 and offsets that
+    match_compact's plain version writes equal those of the host
+    scatter of drained batches, byte for byte; every batch takes the
+    device route with no drain and the host route under
+    SHASTA_TORCH_DEVQ_MB=0."""
+    args, _cand, _ref = inputs
+    on_device = A.align_candidates(*args, device="cpu")
+    assert A.COLLECT["device"] > 0 and A.COLLECT["host"] == 0
+    monkeypatch.setenv("SHASTA_TORCH_DEVQ_MB", "0")
+    on_host = A.align_candidates(*args, device="cpu")
+    assert A.COLLECT["device"] == 0 and A.COLLECT["host"] > 0
+    assert on_device.ord0.shape[0] > 0
+    for k in ("ord0", "ord1", "offsets"):
+        a, b = getattr(on_device, k), getattr(on_host, k)
+        assert a.dtype == b.dtype and a.tobytes() == b.tobytes(), k
+
+
+@pytest.mark.parametrize("devq", [None, "0"])
+def test_uint32_ordinals_past_the_threshold(inputs, monkeypatch, devq):
+    """With the uint16 threshold lowered below the reads' marker counts,
+    the store keeps uint32 ordinals, on the device route and on the
+    host route, with the reference's values and every other array
+    unchanged."""
+    args, _cand, ref = inputs
+    monkeypatch.setattr(A, "_ORD16_MAX", 10)
+    if devq is not None:
+        monkeypatch.setenv("SHASTA_TORCH_DEVQ_MB", devq)
+    got = A.align_candidates(*args, device="cpu")
+    assert got.ord0.dtype == got.ord1.dtype == np.uint32
+    assert ref.ord0.dtype == np.uint16
+    for k, v in ref.arrays().items():
+        if k in ("ord0", "ord1"):
+            assert np.array_equal(getattr(got, k), v.astype(np.uint32)), k
+        else:
+            assert getattr(got, k).dtype == v.dtype and np.array_equal(getattr(got, k), v), k
+
+
+@pytest.mark.parametrize("keep", ["some", "all", "none"])
+@pytest.mark.parametrize("LA,dtype", [(130, np.uint16), (40000, np.uint16), (512, np.uint32)])
+def test_match_compact_plain_equals_row_loop(LA, dtype, keep):
+    """match_compact on CPU tensors (its plain version) against a numpy
+    loop over the rows: rows with no match, kept rows in another order
+    than the batch's, values past 32,767 in int16 storage (uint16) and
+    past 65,535 (uint32). It writes nothing else and counts no launch."""
+    fused, dst, n = compact_batch(24, LA, keep=keep, big=dtype == np.uint32)
+    tdt = torch.int16 if dtype == np.uint16 else torch.int32
+    ord0 = torch.zeros(n, dtype=tdt)
+    ord1 = torch.zeros(n, dtype=tdt)
+    before = K.COMPACT_LAUNCHES
+    K.match_compact(torch.from_numpy(fused), torch.from_numpy(dst), ord0, ord1)
+    want0, want1 = compact_reference(fused, dst, n, dtype)
+    assert np.array_equal(ord0.numpy().view(dtype), want0)
+    assert np.array_equal(ord1.numpy().view(dtype), want1)
+    assert (n > 0) == (keep != "none")
+    assert K.COMPACT_LAUNCHES == before
+    assert "match_compact" not in K.LAUNCHES
 
 
 def test_band_reduce_matches_host_mapping():

@@ -268,7 +268,8 @@ def test_build_takes_every_source(tmp_path, monkeypatch):
     file times, without calling nvcc."""
     cu, cuh = K.kernel_sources()
     assert [os.path.basename(c) for c in cu] == [
-        "banded_align.cu", "banded_fwd_diag.cu", "banded_tb.cu", "int32_peak.cu"
+        "banded_align.cu", "banded_fwd_diag.cu", "banded_tb.cu", "int32_peak.cu",
+        "match_compact.cu",
     ]
     assert [os.path.basename(h) for h in cuh] == ["banded_common.cuh"]
     compiles, link = K.build_commands("nvcc", str(tmp_path / "lib.so"))

@@ -18,7 +18,8 @@ from shasta_tpu_torch.ops import align as A
 from shasta_tpu_torch.ops import align_kernel as K
 from shasta_tpu_torch.utils import peak, synth
 from tests.torch_common import (
-    edge_batch, full_matrix_batch, gap_batch, make_batch, mixed_batch, wide_batch,
+    compact_batch, compact_reference, edge_batch, full_matrix_batch, gap_batch,
+    make_batch, mixed_batch, wide_batch,
 )
 
 KW = dict(match=6, mismatch=-1, gap=-1)
@@ -253,9 +254,13 @@ def test_waves_kernel_matches_plain_on_card(card, LA, W, batch, waves):
 
 
 @pytest.mark.cuda
-def test_align_candidates_card_matches_cpu(card):
+@pytest.mark.parametrize("devq", ["default", "0", "mixed"])
+def test_align_candidates_card_matches_cpu(card, devq, monkeypatch):
     """align_candidates on the card (kernels) and on the CPU (plain
-    version) give equal AlignmentStores, dtypes included."""
+    version) give equal AlignmentStores, dtypes included. The card's
+    phase-2 batches are collected by match_compact ("default"), all
+    drained early and scattered on the host (SHASTA_TORCH_DEVQ_MB=0), or
+    both in one call ("mixed": 4-pair flushes under a 32 KiB budget)."""
     from shasta_tpu_torch.data.kmers import select_kmers_random
     from shasta_tpu_torch.data.markers import find_markers
     from shasta_tpu_torch.data.reads import build_read_store
@@ -287,15 +292,77 @@ def test_align_candidates_card_matches_cpu(card):
     )
     args = (markers, cand.read_id0, cand.read_id1, cand.same_strand, params,
             kt.downsampling_hash_table())
-    before = K.LAUNCHES["banded_fwd"]
-    on_card = A.align_candidates(*args, device=card)
     on_cpu = A.align_candidates(*args, device="cpu")
+    if devq == "0":
+        monkeypatch.setenv("SHASTA_TORCH_DEVQ_MB", "0")
+    elif devq == "mixed":
+        monkeypatch.setattr(A, "_FLUSH_PAIRS", 4)
+
+        class Mixed(A._CsrStreamingRunner):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                self._drain_budget = 32 << 10
+
+        monkeypatch.setattr(A, "_CsrStreamingRunner", Mixed)
+    before, compacts = K.LAUNCHES["banded_fwd"], K.COMPACT_LAUNCHES
+    on_card = A.align_candidates(*args, device=card)
     assert K.LAUNCHES["banded_fwd"] > before
+    assert K.COMPACT_LAUNCHES - compacts == A.COLLECT["device"]
+    assert (A.COLLECT["device"] > 0) == (devq != "0")
+    assert (A.COLLECT["host"] > 0) == (devq != "default")
     assert on_cpu.count > 0
     ga, ra = on_card.arrays(), on_cpu.arrays()
     for k, v in ra.items():
         assert ga[k].dtype == v.dtype, k
         assert np.array_equal(ga[k], v), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("keep", ["some", "all", "none"])
+@pytest.mark.parametrize("LA", [128, 4096, 32768])
+@pytest.mark.parametrize("dtype", [np.uint16, np.uint32])
+def test_match_compact_matches_plain_on_card(card, dtype, LA, keep):
+    """csrc/match_compact.cu against match_compact_plain on the card and
+    a numpy loop over the rows, at LA classes 128, 4096 and 32768: no
+    row kept, every row kept, every other row; rows with no match; the
+    kept rows' slots in another order than the batch's; uint16 and
+    uint32 output (values past 65,535 in the uint32 case). One launch,
+    counted apart from the DP kernels' LAUNCHES."""
+    fused, dst, n = compact_batch(64 if LA < 32768 else 16, LA, keep=keep,
+                                  big=dtype == np.uint32, seed=LA)
+    tdt = torch.int16 if dtype == np.uint16 else torch.int32
+    f, d = torch.from_numpy(fused).to(card), torch.from_numpy(dst).to(card)
+    got = [torch.zeros(n, dtype=tdt, device=card) for _ in range(2)]
+    ref = [torch.zeros(n, dtype=tdt, device=card) for _ in range(2)]
+    before, dp = K.COMPACT_LAUNCHES, dict(K.LAUNCHES)
+    K.match_compact(f, d, *got)
+    K.match_compact_plain(f, d, *ref)
+    torch.cuda.synchronize()
+    assert K.COMPACT_LAUNCHES == before + 1 and K.LAUNCHES == dp
+    want = compact_reference(fused, dst, n, dtype)
+    for g, r, w in zip(got, ref, want):
+        assert torch.equal(g, r)
+        assert np.array_equal(g.cpu().numpy().view(dtype), w)
+
+
+@pytest.mark.cuda
+def test_match_compact_scalar_loads_on_card(card):
+    """The kernel's one-column-a-thread body, taken where LA is not a
+    multiple of 4 or the rows are not 16-byte aligned: LA 130, and LA
+    128 on a view that starts one element into its storage."""
+    for LA, shift in ((130, 0), (128, 1)):
+        fused, dst, n = compact_batch(40, LA, seed=LA + shift)
+        store = torch.zeros(fused.size + shift, dtype=torch.int32, device=card)
+        f = store[shift:].view(fused.shape)
+        f.copy_(torch.from_numpy(fused))
+        assert (f.data_ptr() % 16 != 0) == bool(shift)
+        d = torch.from_numpy(dst).to(card)
+        got = [torch.zeros(n, dtype=torch.int16, device=card) for _ in range(2)]
+        K.match_compact(f, d, *got)
+        torch.cuda.synchronize()
+        want = compact_reference(fused, dst, n, np.uint16)
+        for g, w in zip(got, want):
+            assert np.array_equal(g.cpu().numpy().view(np.uint16), w)
 
 
 @pytest.mark.cuda

@@ -312,6 +312,49 @@ def wide_batch(LA=64, W=16400, B=2, seed=31):
     return a, a_len, b, b_len, bm
 
 
+def compact_batch(B, LA, keep="some", seed=61, big=False):
+    """A fused (B, 16 + LA) int32 batch for match_compact and its CSR
+    destinations. Each row's matches (columns 16 on) are a random share
+    of its columns holding ascending ordinal1 values (-1 elsewhere);
+    every third row has none. ``keep``: "some" keeps every other row,
+    "all" every row, "none" no row. ``big``: values past 65,535, which
+    only the uint32 output holds. Returns (fused, dst (B,) int64 with -1
+    on rows not kept, the CSR's length)."""
+    rng = np.random.default_rng(seed)
+    fused = np.zeros((B, 16 + LA), np.int32)
+    mj = np.full((B, LA), -1, np.int32)
+    for t in range(B):
+        if t % 3 == 2:
+            continue
+        cols = np.flatnonzero(rng.random(LA) < rng.uniform(0.05, 0.9))
+        step = rng.integers(1, 3, cols.shape[0])
+        mj[t, cols] = np.cumsum(step) + (70000 if big else 0)
+    fused[:, 16:] = mj
+    count = (mj >= 0).sum(axis=1)
+    fused[:, 0] = count
+    kept = {"some": np.arange(B) % 2 == 0, "all": np.ones(B, bool),
+            "none": np.zeros(B, bool)}[keep]
+    dst = np.full(B, -1, np.int64)
+    # Kept rows' slots in reverse row order, so the CSR's order is not
+    # the batch's.
+    order = np.flatnonzero(kept)[::-1]
+    offs = np.concatenate([[0], np.cumsum(count[order])])
+    dst[order] = offs[:-1]
+    return fused, dst, int(offs[-1])
+
+
+def compact_reference(fused, dst, n, dtype):
+    """match_compact's output as a numpy loop over the rows: ord0, ord1
+    of ``dtype``, zero wherever no kept match lands."""
+    ord0 = np.zeros(n, dtype)
+    ord1 = np.zeros(n, dtype)
+    for t in np.flatnonzero(dst >= 0):
+        cols = np.flatnonzero(fused[t, 16:] >= 0)
+        ord0[dst[t] : dst[t] + cols.shape[0]] = cols
+        ord1[dst[t] : dst[t] + cols.shape[0]] = fused[t, 16 + cols]
+    return ord0, ord1
+
+
 def palindrome_reads(n=6):
     """The first ``n`` reads of the mode-0 golden input (a 25 kb genome,
     seed 4242; 130 reads of 3 kb from both strands, seed 4243), made
