@@ -13,9 +13,12 @@ Counterpart of the reference LowHash0
   iterations and hits; pairs with frequency >= minFrequency survive.
 
 The reference implements this with per-thread bucket fills and merges;
-here each iteration is a sort/group-by over dense arrays — the same
-shape a sharded device path would use (bucket-id all-to-all followed
-by a segmented pair expansion), here with numpy on the host.
+here each iteration is a sort/group-by over dense arrays on the run's
+device (:func:`find_candidates_lowhash`): the features are hashed, the
+low hashes grouped and each group's pairs expanded and counted into a
+running table of distinct pairs there, so the host never holds the
+pairs of all iterations. The mesh (``parallel/mesh.py``) groups each
+rank's exchanged buckets with numpy on the host.
 """
 
 from __future__ import annotations
@@ -26,9 +29,11 @@ from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import numpy as np
+import torch
 
 from shasta_tpu_torch.data.markers import MarkerStore
 from shasta_tpu_torch.ops import hashing
+from shasta_tpu_torch.utils.perf import span
 
 
 @dataclass
@@ -126,10 +131,12 @@ def prepare_feature_index(
     m: int,
     exclude: Optional[np.ndarray] = None,
     want_ordinals: bool = True,
+    want_features: bool = True,
 ):
     """Loop-invariant feature index shared by all LowHash iterations:
     (sel flat positions, orid per feature, ordinal per feature, and —
-    when it fits in memory — the gathered (n, m) feature matrix).
+    when ``want_features`` and it fits in memory — the gathered (n, m)
+    feature matrix).
     Only the hash seed changes per iteration, so re-deriving this per
     iteration cost several full-array passes for nothing.
 
@@ -169,7 +176,7 @@ def prepare_feature_index(
         budget = max(budget, min(avail // 4, 6 << 30))
     except (ValueError, OSError):  # pragma: no cover
         pass
-    if feat_bytes <= budget:
+    if want_features and feat_bytes <= budget:
         feat = np.empty((sel.shape[0], m), dtype=np.uint32)
         for j in range(m):
             feat[:, j] = kmer_ids[sel + j]
@@ -217,44 +224,175 @@ def compute_feature_hashes(
     return orids, hashes
 
 
-def compute_feature_hashes_filtered(
-    markers: MarkerStore,
-    m: int,
-    seed: int,
-    threshold: np.uint64,
-    prepared,
-    chunk: int = 1 << 24,
-):
-    """Hash features and keep only those below ``threshold``, chunked
-    so the full n-feature hash array never materializes (at SCALE=50
-    that array was 1.4 GB per LowHash iteration for a ~2% keep rate).
-    Returns (orids_low, hashes_low), identical to filtering
-    :func:`compute_feature_hashes` by ``hashes < threshold``."""
-    sel, orids, _ords, feat = prepared
-    kmer_ids = markers.kmer_ids
-    n = sel.shape[0]
-    out_o: list = []
-    out_h: list = []
-    fbuf = None if feat is not None else np.empty(
-        (min(chunk, n), m), dtype=np.uint32
+# Pair keys expanded at once on the device: 512 MiB of int64 keys.
+PAIR_CHUNK = 1 << 26
+# Features hashed at once on the device.
+FEATURE_CHUNK = 1 << 24
+_M64_S = 0xC6A4A7935BD1E995 - (1 << 64)  # MurmurHash64A's multiplier as int64
+_SIGN = -(1 << 63)
+_NONE = (1 << 63) - 1  # a pair key no pair has: sorts last
+
+# The last find_candidates_lowhash call's work: pair keys counted
+# (readId0 != readId1), iterations run and candidates kept. Reset at
+# each call.
+COUNTS = {"pair_keys": 0, "iterations": 0, "candidates": 0}
+
+# On the card each torch operator family loads its kernels' module into
+# host memory the first time it runs (tens of MiB each). The device path
+# below keeps to the families the align driver loads already, plus sort,
+# int64 multiply and shifts: its selections are cumsum-and-scatter
+# compactions (no nonzero or boolean indexing), its groups runs of sorted
+# keys (no unique, repeat_interleave or bincount).
+
+
+def _lsr(x: torch.Tensor, r: int) -> torch.Tensor:
+    """Logical right shift of int64 words (``>>`` is arithmetic)."""
+    return (x >> r) & ((1 << (64 - r)) - 1)
+
+
+def _compact(keep: torch.Tensor, *xs: torch.Tensor):
+    """The elements of each of ``xs`` where ``keep`` holds, in order."""
+    pos = torch.cumsum(keep, 0)
+    n = int(pos[-1]) if pos.shape[0] else 0
+    where = torch.where(keep, pos - 1, n)
+    return tuple(x.new_empty(n + 1).scatter_(0, where, x)[:n] for x in xs)
+
+
+def _runs(sorted_keys: torch.Tensor, weight: Optional[torch.Tensor] = None):
+    """(run of each element, each run's sum of ``weight``: by default
+    its length) of equal neighbours."""
+    starts = torch.ones_like(sorted_keys, dtype=torch.bool)
+    starts[1:] = sorted_keys[1:] != sorted_keys[:-1]
+    run = torch.cumsum(starts, 0) - 1
+    n = int(run[-1]) + 1 if run.shape[0] else 0
+    if weight is None:
+        weight = torch.ones_like(run)
+    return run, torch.zeros(n, dtype=weight.dtype, device=run.device).scatter_add_(
+        0, run, weight
     )
-    for lo in range(0, n, chunk):
-        hi = min(lo + chunk, n)
-        if feat is not None:
-            fb = feat[lo:hi]
-        else:
-            fb = fbuf[: hi - lo]
-            block = sel[lo:hi]
-            for j in range(m):
-                fb[:, j] = kmer_ids[block + j]
-        h = hashing.murmur64_features(fb, seed)
-        low = np.flatnonzero(h < threshold)
-        if low.shape[0]:
-            out_o.append(orids[lo:hi][low].astype(np.int64))
-            out_h.append(h[low])
-    if not out_o:
-        return np.zeros(0, np.int64), np.zeros(0, np.uint64)
-    return np.concatenate(out_o), np.concatenate(out_h)
+
+
+class _DeviceFeatures:
+    """Every feature's key words on ``device``, its 8-byte chunks already
+    mixed (MurmurHash64A mixes each chunk independently of the seed), so
+    that an iteration's hash is the seed's chain over them."""
+
+    def __init__(self, markers: MarkerStore, m: int, exclude, device):
+        sel, orids, _ords, _feat = prepare_feature_index(
+            markers, m, exclude, want_ordinals=False, want_features=False
+        )
+        self.n = int(sel.shape[0])
+        self.m = m
+        self.orids = torch.from_numpy(np.ascontiguousarray(orids, np.int32)).to(device)
+        kmers = np.ascontiguousarray(markers.kmer_ids, np.uint32).view(np.int32)
+        kmers = torch.from_numpy(kmers).to(device)
+        pos = torch.from_numpy(np.ascontiguousarray(sel, np.int64)).to(device)
+        words = [kmers[pos + j].to(torch.int64) & 0xFFFFFFFF for j in range(m)]
+        del kmers, pos
+        self.chunks = []
+        for c in range(m // 2):
+            k = (words[2 * c] | (words[2 * c + 1] << 32)) * _M64_S
+            k = (k ^ _lsr(k, 47)) * _M64_S
+            self.chunks.append(k)
+        self.tail = words[m - 1] if m % 2 else None
+
+    def low(self, seed: int, threshold: int):
+        """(orids int64, hashes int64) of the features whose hash, read
+        as unsigned, is below ``threshold``."""
+        h0 = (seed ^ (4 * self.m * 0xC6A4A7935BD1E995)) & ((1 << 64) - 1)
+        h0 -= (h0 >> 63) << 64
+        thr = threshold + _SIGN
+        out_o, out_h = [], []
+        for lo in range(0, self.n, FEATURE_CHUNK):
+            hi = min(lo + FEATURE_CHUNK, self.n)
+            h = torch.full((hi - lo,), h0, dtype=torch.int64, device=self.orids.device)
+            for k in self.chunks:
+                h = (h ^ k[lo:hi]) * _M64_S
+            if self.tail is not None:
+                h = (h ^ self.tail[lo:hi]) * _M64_S
+            h = (h ^ _lsr(h, 47)) * _M64_S
+            h = h ^ _lsr(h, 47)
+            o, h = _compact((h ^ _SIGN) < thr, self.orids[lo:hi].to(torch.int64), h)
+            out_o.append(o)
+            out_h.append(h)
+        if not out_o:
+            z = torch.zeros(0, dtype=torch.int64, device=self.orids.device)
+            return z, z
+        return torch.cat(out_o), torch.cat(out_h)
+
+
+def _pair_keys(orids: torch.Tensor, group: torch.Tensor, group_sizes: torch.Tensor):
+    """Every pair (i < j) of entries within each group of the grouped
+    ``orids`` (``group``: each entry's group), as packed keys
+    (readId0 << 33) | (readId1 << 1) | sameStrand with readId0 <
+    readId1, and ``_NONE`` for a pair of one read, in chunks of at most
+    about PAIR_CHUNK keys: each entry pairs with the entries after it in
+    its group."""
+    dev = orids.device
+    n = orids.shape[0]
+    starts = torch.cumsum(group_sizes, 0) - group_sizes
+    entry = torch.arange(n, device=dev)
+    after = group_sizes[group] - 1 - (entry - starts[group])
+    ends = torch.cumsum(after, 0)
+    total = int(ends[-1]) if n else 0
+    cuts = [0]
+    if total > PAIR_CHUNK:
+        marks = torch.arange(PAIR_CHUNK, total, PAIR_CHUNK, device=dev)
+        cuts += torch.searchsorted(ends, marks, right=True).tolist()
+    cuts.append(n)
+    for lo, hi in zip(cuts[:-1], cuts[1:]):
+        cnt = after[lo:hi]
+        first = torch.cumsum(cnt, 0) - cnt
+        size = int(first[-1] + cnt[-1]) if hi > lo else 0
+        if size == 0:
+            continue
+        # Pair slot t belongs to the r-th entry with pairs, r the number
+        # of such entries whose first slot is at or before t, less one.
+        has = cnt > 0
+        owners, starts_at = _compact(has, entry[lo:hi], first)
+        mark = torch.zeros(size, dtype=torch.int64, device=dev)
+        mark.scatter_(0, starts_at, torch.ones_like(starts_at))
+        a = owners[torch.cumsum(mark, 0) - 1]
+        b = a + 1 + torch.arange(size, device=dev) - first[a - lo]
+        oa, ob = orids[a], orids[b]
+        ra, rb = oa >> 1, ob >> 1
+        key = (torch.minimum(ra, rb) << 33) | (torch.maximum(ra, rb) << 1) \
+            | ((oa & 1) == (ob & 1)).to(torch.int64)
+        yield torch.where(ra != rb, key, _NONE)
+
+
+class _PairCounter:
+    """A running (key, count) table of pair keys on the device, its keys
+    sorted as int64 and distinct: bounded by the distinct pairs, not by
+    the keys added."""
+
+    def __init__(self, device):
+        self.keys = torch.zeros(0, dtype=torch.int64, device=device)
+        self.counts = torch.zeros(0, dtype=torch.int64, device=device)
+
+    def add(self, keys: torch.Tensor) -> int:
+        """Count ``keys`` (``_NONE`` left out); returns how many were
+        counted."""
+        every, order = torch.sort(torch.cat([self.keys, keys]))
+        weight = torch.cat([self.counts, torch.ones_like(keys)])[order]
+        run, self.counts = _runs(every, weight)
+        n = self.counts.shape[0]
+        self.keys = every.new_empty(n).scatter_(0, run, every)
+        added = keys.shape[0]
+        if n and int(self.keys[-1]) == _NONE:
+            added -= int(self.counts[-1])
+            self.keys, self.counts = self.keys[:-1], self.counts[:-1]
+        return added
+
+    def kept(self, min_frequency: int):
+        """(keys uint64, counts) of the pairs counted at least
+        ``min_frequency`` times, in unsigned key order, on the host."""
+        keys = self.keys.cpu().numpy().view(np.uint64)
+        counts = self.counts.cpu().numpy()
+        keep = counts >= min_frequency
+        keys, counts = keys[keep], counts[keep]
+        order = np.argsort(keys, kind="stable")
+        return keys[order], counts[order]
 
 
 def find_candidates_lowhash(
@@ -262,122 +400,84 @@ def find_candidates_lowhash(
     params: LowHashParams,
     is_palindromic: Optional[np.ndarray] = None,
     stats_out: Optional[dict] = None,
+    device=None,
 ) -> CandidatePairs:
-    """Run all LowHash iterations and return frequency-filtered pairs."""
-    n_or = markers.oriented_read_count
-    total_markers = markers.total_count
+    """Run all LowHash iterations and return frequency-filtered pairs.
 
+    Every iteration runs on ``device`` (the CPU when None): the feature
+    hashes, the bucket and collision groups, each group's pairs, and
+    their count, merged into a running table of distinct pairs; only
+    that table comes back to the host. ``stats_out`` receives the
+    bucket-size histogram and the per-oriented-read sparse, good and
+    crowded counts."""
+    COUNTS.update(pair_keys=0, iterations=0, candidates=0)
+    dev = torch.device("cpu" if device is None else device)
     log2_buckets = params.log2_bucket_count
     if log2_buckets == 0:
-        log2_buckets = _auto_log2_bucket_count(total_markers, params.hash_fraction)
-    mask = np.uint64((1 << log2_buckets) - 1)
-    hash_threshold = np.uint64(
-        min(int(params.hash_fraction * float(2**64)), 2**64 - 1)
-    )
-
+        log2_buckets = _auto_log2_bucket_count(markers.total_count, params.hash_fraction)
+    mask = (1 << log2_buckets) - 1
+    threshold = min(int(params.hash_fraction * float(2**64)), 2**64 - 1)
     exclude = None
     if is_palindromic is not None:
         exclude = np.repeat(is_palindromic, 2)
-
     min_bucket = max(2, params.min_bucket_size)
     max_bucket = params.max_bucket_size
 
-    pair_keys = []  # uint64 keys: (r0 << 33) | (r1 << 1) | sameStrand
-
-    prepared = prepare_feature_index(
-        markers, params.m, exclude, want_ordinals=False
-    )
+    with span("stage:lowhash.hash"):
+        features = _DeviceFeatures(markers, params.m, exclude, dev)
+    counter = _PairCounter(dev)
+    hist = torch.zeros(max_bucket + 2, dtype=torch.int64, device=dev)
+    hist_len = 0
+    read_stats = None
+    if stats_out is not None:
+        read_stats = torch.zeros(markers.oriented_read_count * 3, dtype=torch.int64, device=dev)
     for it in range(params.iteration_count):
-        orids, hashes = compute_feature_hashes_filtered(
-            markers, params.m, it * 37, hash_threshold, prepared=prepared
-        )
+        COUNTS["iterations"] += 1
+        with span("stage:lowhash.hash"):
+            orids, hashes = features.low(it * 37, threshold)
         if orids.shape[0] == 0:
             continue
+        with span("stage:lowhash.group"):
+            # Bucket sizes over the FULL bucket (before the high-bits
+            # collision filter), as in the reference (LowHash0.cpp:434-441).
+            buckets, order = torch.sort(hashes & mask, stable=True)
+            orids, hashes = orids[order], hashes[order]
+            run, sizes = _runs(buckets)
+            entry_size = sizes[run]
+            if read_stats is not None:
+                # Bucket-size histogram + per-read sparse/good/crowded
+                # counts (reference: LowHashBucketHistogram.csv at
+                # LowHash0.cpp:57 and readLowHashStatistics).
+                hist_len = max(hist_len, int(sizes.max()) + 1)
+                if hist_len > hist.shape[0]:
+                    hist = torch.cat([hist, hist.new_zeros(hist_len - hist.shape[0])])
+                hist.scatter_add_(0, sizes, torch.ones_like(sizes))
+                kind = torch.where(entry_size < min_bucket, 0,
+                                   torch.where(entry_size <= max_bucket, 1, 2))
+                read_stats.scatter_add_(0, orids * 3 + kind, torch.ones_like(orids))
+                if min_bucket > max_bucket + 1:
+                    # A size below min_bucket and above max_bucket counts
+                    # as sparse and as crowded.
+                    both = (entry_size < min_bucket) & (entry_size > max_bucket)
+                    read_stats.scatter_add_(0, orids * 3 + 2, both.to(torch.int64))
+            usable = (entry_size >= min_bucket) & (entry_size <= max_bucket)
+            # Within usable buckets, sub-group by high 32 bits.
+            key, orids = _compact(usable, (buckets << 32) | _lsr(hashes, 32), orids)
+            if key.shape[0] == 0:
+                continue
+            key, order = torch.sort(key)
+            orids = orids[order]
+            group, sizes = _runs(key)
+        with span("stage:lowhash.pairs"):
+            for keys in _pair_keys(orids, group, sizes):
+                COUNTS["pair_keys"] += counter.add(keys)
 
-        buckets = (hashes & mask).astype(np.uint64)
-        # Bucket sizes over the FULL bucket (before the high-bits
-        # collision filter), as in the reference (LowHash0.cpp:434-441).
-        if stats_out is not None:
-            # Bucket-size histogram + per-read sparse/good/crowded
-            # counts (reference: LowHashBucketHistogram.csv at
-            # LowHash0.cpp:57 and readLowHashStatistics).
-            _, bucket_sizes = np.unique(buckets, return_counts=True)
-            bh = np.bincount(bucket_sizes)
-            hist = stats_out.setdefault("bucket_histogram", np.zeros(0, np.int64))
-            if hist.shape[0] < bh.shape[0]:
-                hist = np.concatenate(
-                    [hist, np.zeros(bh.shape[0] - hist.shape[0], np.int64)]
-                )
-            hist[: bh.shape[0]] += bh
-            stats_out["bucket_histogram"] = hist
-            order0 = np.argsort(buckets, kind="stable")
-            bs = buckets[order0]
-            new_flag = np.empty(bs.shape[0], bool)
-            new_flag[0] = True
-            np.not_equal(bs[1:], bs[:-1], out=new_flag[1:])
-            gid0 = np.cumsum(new_flag) - 1
-            size_of_entry = np.bincount(gid0)[gid0]
-            o_sorted0 = orids[order0]
-            read_stats = stats_out.setdefault(
-                "read_stats", np.zeros((markers.oriented_read_count, 3), np.int64)
-            )
-            lo_b = max(2, params.min_bucket_size)
-            sparse = size_of_entry < lo_b
-            good = (size_of_entry >= lo_b) & (size_of_entry <= params.max_bucket_size)
-            crowded = size_of_entry > params.max_bucket_size
-            np.add.at(read_stats[:, 0], o_sorted0[sparse], 1)
-            np.add.at(read_stats[:, 1], o_sorted0[good], 1)
-            np.add.at(read_stats[:, 2], o_sorted0[crowded], 1)
-        order = np.argsort(buckets, kind="stable")
-        b_sorted = buckets[order]
-        o_sorted = orids[order]
-        h_sorted = hashes[order]
-
-        # Group bounds by bucket.
-        is_new = np.empty(b_sorted.shape[0], dtype=bool)
-        is_new[0] = True
-        np.not_equal(b_sorted[1:], b_sorted[:-1], out=is_new[1:])
-        group_id = np.cumsum(is_new) - 1
-        group_sizes = np.bincount(group_id)
-        entry_bucket_size = group_sizes[group_id]
-
-        usable = (entry_bucket_size >= min_bucket) & (entry_bucket_size <= max_bucket)
-        if not usable.any():
-            continue
-
-        # Within usable buckets, sub-group by high 32 bits.
-        ub = b_sorted[usable]
-        uo = o_sorted[usable]
-        uh = (h_sorted[usable] >> np.uint64(32)).astype(np.uint64)
-        key = (ub << np.uint64(32)) | uh  # log2_buckets<=31 so no overlap
-        order2 = np.argsort(key, kind="stable")
-        key = key[order2]
-        uo = uo[order2]
-
-        is_new2 = np.empty(key.shape[0], dtype=bool)
-        is_new2[0] = True
-        np.not_equal(key[1:], key[:-1], out=is_new2[1:])
-        gid2 = np.cumsum(is_new2) - 1
-        gsize2 = np.bincount(gid2)
-
-        pairs = _pairs_within_groups(uo, gid2, gsize2)
-        if pairs is not None:
-            pair_keys.append(pairs)
-
-    if not pair_keys:
-        return CandidatePairs(
-            read_id0=np.zeros(0, np.int32),
-            read_id1=np.zeros(0, np.int32),
-            same_strand=np.zeros(0, bool),
-            frequency=np.zeros(0, np.int32),
-        )
-
-    all_keys = np.concatenate(pair_keys)
-    uniq, freq = np.unique(all_keys, return_counts=True)
-    keep = freq >= params.min_frequency
-    uniq = uniq[keep]
-    freq = freq[keep]
-
+    with span("stage:lowhash.pairs"):
+        uniq, freq = counter.kept(params.min_frequency)
+    COUNTS["candidates"] = int(uniq.shape[0])
+    if hist_len:
+        stats_out["bucket_histogram"] = hist[:hist_len].cpu().numpy()
+        stats_out["read_stats"] = read_stats.view(-1, 3).cpu().numpy()
     r0 = (uniq >> np.uint64(33)).astype(np.int32)
     r1 = ((uniq >> np.uint64(1)) & np.uint64(0xFFFFFFFF)).astype(np.int32)
     same = (uniq & np.uint64(1)).astype(bool)

@@ -378,7 +378,8 @@ class Assembler:
                 )
             else:
                 self.candidates = LH.find_candidates_lowhash(
-                    self.markers, params, self.reads.is_palindromic, lh_stats
+                    self.markers, params, self.reads.is_palindromic, lh_stats,
+                    device=self.device,
                 )
             if (
                 not cm.all_pairs

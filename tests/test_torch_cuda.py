@@ -318,6 +318,43 @@ def test_align_candidates_card_matches_cpu(card, devq, monkeypatch):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("chunks", ["whole", "chunked"])
+def test_lowhash_on_card_matches_cpu(card, chunks, monkeypatch):
+    """LowHash at HiFi-Oct2021's values on the card (its int64 hash
+    chain, sorts and running pair table) gives the CPU tensors'
+    candidates, frequencies and bucket statistics, whole or in small
+    chunks of features and pair keys."""
+    from shasta_tpu_torch.data.kmers import select_kmers_random
+    from shasta_tpu_torch.data.markers import find_markers
+    from shasta_tpu_torch.data.reads import build_read_store
+    from shasta_tpu_torch.io.fasta import parse_fasta_bytes
+    from shasta_tpu_torch.ops import lowhash as LH
+
+    if chunks == "chunked":
+        monkeypatch.setattr(LH, "PAIR_CHUNK", 997)
+        monkeypatch.setattr(LH, "FEATURE_CHUNK", 4099)
+    genome = synth.random_genome(60000, seed=71)
+    reads = synth.sample_reads(genome, 180, 10000, seed=72, error_rate=0.002,
+                               both_strands=True)
+    fasta = b"".join(b">r%d\n%s\n" % (i, np.frombuffer(b"ACGT", np.uint8)[r].tobytes())
+                     for i, r in enumerate(reads))
+    markers = find_markers(build_read_store(parse_fasta_bytes(fasta), min_read_length=0),
+                           select_kmers_random(14, 0.1, seed=231))
+    params = LH.LowHashParams(m=4, hash_fraction=0.05, iteration_count=100,
+                              min_bucket_size=10, max_bucket_size=60, min_frequency=3)
+    pal = np.zeros(len(reads), bool)
+    pal[7] = True
+    stats = {}, {}
+    got = [LH.find_candidates_lowhash(markers, params, pal, st, device=d)
+           for st, d in zip(stats, (card, "cpu"))]
+    assert got[0].count > 0
+    for f in ("read_id0", "read_id1", "same_strand", "frequency"):
+        assert np.array_equal(getattr(got[0], f), getattr(got[1], f)), f
+    for k in stats[1]:
+        assert np.array_equal(stats[0][k], stats[1][k]), k
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("keep", ["some", "all", "none"])
 @pytest.mark.parametrize("LA", [128, 4096, 32768])
 @pytest.mark.parametrize("dtype", [np.uint16, np.uint32])
