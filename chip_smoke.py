@@ -44,7 +44,12 @@ no result line):
    in-matrix cells, and the least time the card could take (the bound:
    the in-matrix cells' int32 operations, or the inputs and every dirs
    word of a processed row); any time below its bound fails. Then both
-   forward bodies and the waves kernel at 1 to 16 blocks per SM.
+   forward bodies and the waves kernel at 1 to 16 blocks per SM. Then
+   kmer_table (csrc/kmer_table.cu): the k-14 downsampling hash table
+   (2^28 ids) built through data/kmers.py's card path, equal bit for bit
+   (sha256 of all 1 GiB, and a stride of ids against the numpy hash) to
+   the numpy table the spot-check worker builds; its time against its
+   bound (4 bytes written an id).
 3. The golden input (tests/golden/mode0_stage_hashes.json's) through the
    whole assemble command (shasta_tpu_torch.__main__.main) on the card,
    on the card with SHASTA_TORCH_WAVES=2 and =4, and on the CPU: all
@@ -895,6 +900,54 @@ def phase_kernels(sm_clock_mhz):
     return results
 
 
+# int32 operations kmer_table's bound counts an id: the reverse complement
+# 8, the 64-bit key's add 2, two MurmurHash2 blocks 6 each, the finalizer 5.
+KMER_TABLE_OPS_PER_ID = 27
+
+
+def phase_kmer_table(sm_clock_mhz):
+    """kmer_table against numpy: the k-14 table built through
+    data/kmers.py's card path, bit for bit equal to the spot-check
+    worker's numpy table (sha256 of every byte) and, on a stride of ids,
+    to kmer_downsampling_hash here; then the kernel's time at k 14 in one
+    launch against its bound."""
+    from shasta_tpu_torch.data import kmers as KM
+    from shasta_tpu_torch.ops import align_kernel as K
+
+    k = ont_k()
+    n = 1 << (2 * k)
+    digest = _SPOT["pool"].apply_async(_ds_table_digest, (k,))
+    KM._TABLES.clear()
+    before = K.KMER_TABLE_LAUNCHES
+    table = KM.downsampling_hash_table(k, "cuda")
+    build = dict(KM.LAST_BUILD)
+    if K.KMER_TABLE_LAUNCHES != before + 1 or build["path"] != "device":
+        raise AssertionError(f"kmer_table: the card path took {K.KMER_TABLE_LAUNCHES - before} "
+                             f"launches, {build}")
+    ids = np.arange(0, n, 4099, dtype=np.uint64)
+    if not np.array_equal(table[ids.astype(np.int64)], KM.kmer_downsampling_hash(ids, k)):
+        raise AssertionError(f"kmer_table != kmer_downsampling_hash on a stride of ids at k {k}")
+    got = hashlib.sha256(memoryview(table)).hexdigest()
+    KM._TABLES.clear()
+    del table
+    want, plain_s = digest.get()
+    if got != want:
+        raise AssertionError(f"kmer_table's table at k {k} != the numpy table: sha256 {got} != {want}")
+    buf = torch.empty(n, dtype=torch.int32, device="cuda")
+    turns = [cuda_ms(lambda: K.kmer_table(buf, k), 20) for _ in range(3)]
+    del buf
+    torch.cuda.empty_cache()
+    ms = min(turns)
+    bound, by, _, _ = bound_ms(n * KMER_TABLE_OPS_PER_ID, 4 * n, sm_clock_mhz)
+    check_shares(f"kmer_table k={k}", bound, {"kmer_table": ms})
+    log(f"kmer_table k={k} ({n} ids): equal to the numpy table bit for bit (sha256 {got}); "
+        f"{ms:.4f} ms (turns {', '.join(f'{x:.4f}' for x in turns)}; bound {bound:.4f} ms by "
+        f"{by}, {bound / ms:.1%}); the card path's build with its copy to the host "
+        f"{build['seconds']:.3f} s, numpy's {plain_s:.1f} s (the spot-check worker)")
+    return {"k": k, "ids": n, "ms": ms, "turns_ms": turns, "bound_ms": bound, "bound_by": by,
+            "plain_ms": plain_s * 1e3, "build_s": build["seconds"], "sha256": got}
+
+
 def phase_blocks_per_sm():
     """Whether a one-warp block is bound by its own latency or by what
     the SM can issue: at 4096 x 128, both banded_fwd bodies and
@@ -974,6 +1027,7 @@ def reset_launches():
     for counts in (K.LAUNCHES, peak.LAUNCHES):
         for k in counts:
             counts[k] = 0
+    K.KMER_TABLE_LAUNCHES = 0
 
 
 @contextlib.contextmanager
@@ -1245,6 +1299,7 @@ def compare_classes(default, waves):
 
 
 def phase_real_size(work, sm_clock_mhz):
+    from shasta_tpu_torch.data import kmers as KM
     from shasta_tpu_torch.data.kmers import KmerTable
     from shasta_tpu_torch.data.markers import MarkerStore
     from shasta_tpu_torch.data.reads import ReadStore
@@ -1282,6 +1337,7 @@ def phase_real_size(work, sm_clock_mhz):
         compute_alignments(self)
         span.append(len(K.TRACE))
 
+    KM._TABLES.clear()  # the run builds its own downsampling table
     reset_launches()
     K.TRACE = []
     torch.cuda.reset_peak_memory_stats()
@@ -1294,6 +1350,7 @@ def phase_real_size(work, sm_clock_mhz):
         Assembler.compute_alignments = compute_alignments
     wall = time.perf_counter() - t0
     launches = dict(K.LAUNCHES)
+    kmer_table_launches = K.KMER_TABLE_LAUNCHES
     trace, K.TRACE = K.TRACE, None
     peak = torch.cuda.max_memory_allocated()
     times = summary["stageSeconds"]
@@ -1336,6 +1393,11 @@ def phase_real_size(work, sm_clock_mhz):
     )
     if launches["banded_fwd"] == 0 or launches["banded_tb"] == 0:
         raise AssertionError(f"a kernel never launched on the main path: {launches}")
+    if kmer_table_launches != 1 or KM.LAST_BUILD.get("path") != "device":
+        raise AssertionError(f"the main path built its downsampling table in "
+                             f"{kmer_table_launches} kmer_table launches, {KM.LAST_BUILD}")
+    log(f"real size: the downsampling table of k {KM.LAST_BUILD['k']} built on the card "
+        f"in {KM.LAST_BUILD['seconds']:.3f} s, one kmer_table launch")
     if launches["banded_fwd_waves"] != 0:
         raise AssertionError(f"the waves kernel ran at SHASTA_TORCH_WAVES unset: {launches}")
     if not any(c["LA"] >= 8192 for c in shapes):
@@ -1427,6 +1489,7 @@ def phase_real_size(work, sm_clock_mhz):
     spot_check_later("real size", run_dir, cfg)
     return {
         "dir": run_dir, "launches": launches, "times": times, "wall_s": wall,
+        "kmer_table_launches": kmer_table_launches, "table_build": dict(KM.LAST_BUILD),
         "peak_bytes": peak,
         "peak_rss_kb": summary["peakMemoryUsageKB"],
         "summary": {k: v for k, v in summary.items() if not isinstance(v, (dict, list))},
@@ -2013,8 +2076,9 @@ def phase_mode3_real_size(work, sm_clock_mhz, genome_len=1_000_000):
 
 
 # The downsampling hash table of every k-mer, by k: a function of k alone,
-# built once in the spot-check worker.
+# built once in the spot-check worker; the seconds numpy took, by k.
 _DS_TABLES = {}
+_DS_SECONDS = {}
 
 # The spot-check worker (spot_checks_start) and its pending checks.
 _SPOT = {"pool": None, "pending": []}
@@ -2031,7 +2095,15 @@ def ont_k():
 def _spot_worker_init(k):
     from shasta_tpu_torch.data.kmers import kmer_downsampling_hash
 
+    t0 = time.perf_counter()
     _DS_TABLES[k] = kmer_downsampling_hash(np.arange(1 << (2 * k), dtype=np.uint64), k)
+    _DS_SECONDS[k] = time.perf_counter() - t0
+
+
+def _ds_table_digest(k):
+    """(sha256 of the worker's numpy table of k, the seconds numpy took
+    to build it)."""
+    return hashlib.sha256(memoryview(_DS_TABLES[k])).hexdigest(), _DS_SECONDS[k]
 
 
 def spot_checks_start():
@@ -3083,6 +3155,7 @@ def main() -> int:
     spot_checks_start()
     try:
         kernels = run(2, phase_kernels, sm_clock)
+        out["kmer_table"] = run(2, phase_kmer_table, sm_clock)
         blocks = run(2, phase_blocks_per_sm)
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
             run(3, phase_golden, work)
@@ -3221,6 +3294,7 @@ def kernel_line(kernels, real, out):
     )
     rw = kernels[rep_w]
     ic = out["bench"]["int32_chain"]
+    kt = out["kmer_table"]
     csrc = "shasta_tpu_torch/csrc/"
     return {"kernels": [
         {"name": "banded_fwd", "route": "cuda", "source": csrc + "banded_align.cu",
@@ -3259,6 +3333,12 @@ def kernel_line(kernels, real, out):
          "ms": ic["ms"], "plain_ms": ic["plain_ms"], "bound_ms": ic["bound_ms"],
          "bound_by": ic["bound_by"], "library_ms": None,
          "shape": {"tile": ic["tile"], "K": ic["K"]}},
+        {"name": "kmer_table", "route": "cuda", "source": csrc + "kmer_table.cu",
+         "replaces": "shasta_tpu/data/kmers.py:downsampling_hash_table (numpy on the host; no Pallas)",
+         "launches": real["kmer_table_launches"], "paths": ["mode0"], "max_abs_err": 0,
+         "ms": kt["ms"], "plain_ms": kt["plain_ms"], "bound_ms": kt["bound_ms"],
+         "bound_by": kt["bound_by"], "library_ms": None,
+         "shape": {"k": kt["k"], "ids": kt["ids"]}},
     ]}
 
 

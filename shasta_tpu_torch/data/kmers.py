@@ -13,7 +13,10 @@ cheap functions (reverse complement, hash) on the fly:
 - reverse complement ids via vectorized bit manipulation
 - downsampling hash identical to the reference:
   MurmurHash2(kmerId + rc(kmerId), seed=13477)
-  (reference: src/AssemblerKmers.cpp:182-186)
+  (reference: src/AssemblerKmers.cpp:182-186); its table over every id
+  is built on the run's card by a hand-written kernel
+  (``csrc/kmer_table.cu``) where the table carries a CUDA device, with
+  numpy elsewhere
 
 Marker selection method 0 (random selection) follows the reference
 semantics (reference: src/AssemblerKmers.cpp:31-100): each k-mer and
@@ -27,12 +30,16 @@ parallel (no sequential RNG stream).
 
 from __future__ import annotations
 
-import functools
-from dataclasses import dataclass
+import threading
+import time
+from dataclasses import dataclass, field
+from typing import Optional
 
 import numpy as np
+import torch
 
 from shasta_tpu_torch.ops import hashing
+from shasta_tpu_torch.utils.perf import span
 
 
 # Per-byte reverse complement of 4 packed bases: byte b -> the 4 bases
@@ -85,21 +92,62 @@ def kmer_downsampling_hash(kmer_ids: np.ndarray, k: int) -> np.ndarray:
     return hashing.murmur32_u64(n, 13477)
 
 
-@functools.lru_cache(maxsize=1)
-def downsampling_hash_table(k: int) -> np.ndarray:
+# The downsampling table of the last k asked for, {k: table}: one a process.
+_TABLES: dict = {}
+_TABLES_LOCK = threading.Lock()
+# Tables built, by where: "device" (csrc/kmer_table.cu on the run's card)
+# or "host" (numpy).
+TABLE_BUILDS = {"device": 0, "host": 0}
+# The last build: {"k", "path" ("device" or "host"), "seconds"}.
+LAST_BUILD: dict = {}
+
+
+def _table_on_card(k: int, device) -> np.ndarray:
+    """The table computed on the card ``device`` by ``csrc/kmer_table.cu``
+    in one launch, then copied once into a fresh numpy array (a copy to
+    pageable memory, which waits for it); the device buffer is freed."""
+    from shasta_tpu_torch.ops import align_kernel as K
+
+    buf = torch.empty(1 << (2 * k), dtype=torch.int32, device=device)
+    K.kmer_table(buf, k)
+    table = np.empty(buf.numel(), np.uint32)
+    torch.from_numpy(table.view(np.int32)).copy_(buf)
+    return table
+
+
+def downsampling_hash_table(k: int, device=None) -> np.ndarray:
     """:func:`kmer_downsampling_hash` of every k-mer id (uint32 [4^k]),
     read-only. A function of k alone: the table of the last k asked for
-    stays in memory (1 GiB at k 14, about 20 s to compute), so the runs
-    of one process at one k compute it once."""
-    table = kmer_downsampling_hash(np.arange(1 << (2 * k), dtype=np.uint64), k)
-    table.flags.writeable = False
-    return table
+    stays in memory (1 GiB at k 14), so the runs of one process at one k
+    build it once. Built on ``device`` where that is a card (about 20 s
+    of numpy at k 14 becomes a kernel and a copy), on the host otherwise;
+    both give the same bits."""
+    with _TABLES_LOCK:
+        table = _TABLES.get(k)
+        if table is not None:
+            return table
+        _TABLES.clear()
+        path = "device" if device is not None and torch.device(device).type == "cuda" else "host"
+        t0 = time.perf_counter()
+        with span("stage:kmers.table"):
+            if path == "device":
+                table = _table_on_card(k, device)
+            else:
+                table = kmer_downsampling_hash(np.arange(1 << (2 * k), dtype=np.uint64), k)
+        table.flags.writeable = False
+        _TABLES[k] = table
+        TABLE_BUILDS[path] += 1
+        LAST_BUILD.update(k=k, path=path, seconds=time.perf_counter() - t0)
+        return table
 
 
 @dataclass
 class KmerTable:
     k: int
     is_marker: np.ndarray  # bool [4^k]
+    # The run's device, where the downsampling table is built (a card) or
+    # not (None, the CPU); not saved with the stage.
+    device: Optional[torch.device] = field(default=None, compare=False)
 
     @property
     def kmer_count(self) -> int:
@@ -114,8 +162,9 @@ class KmerTable:
 
     def downsampling_hash_table(self) -> np.ndarray:
         """hash for every k-mer id (uint32 [4^k], read-only), computed
-        once per k in a process (:func:`downsampling_hash_table`)."""
-        return downsampling_hash_table(self.k)
+        once per k in a process, on the table's device where that is a
+        card (:func:`downsampling_hash_table`)."""
+        return downsampling_hash_table(self.k, self.device)
 
     def check_rc_closed(self) -> bool:
         ids = np.arange(self.kmer_count, dtype=np.uint64)

@@ -57,6 +57,12 @@ writes the kept rows' matches of a fused batch straight into the
 alignment store's CSR on the card, where the JAX package fetches them
 and scatters them on the host.
 
+``kmer_table`` (``csrc/kmer_table.cu``) replaces no TPU kernel either: it
+computes alignMethod 3's k-mer downsampling hash table
+(``data/kmers.py:downsampling_hash_table``) on the card, where the JAX
+package computes it with numpy on the host. Its plain version is that
+numpy function; it takes CUDA tensors alone.
+
 A wrapper runs the plain PyTorch version only because its tensors lie on
 the CPU; on CUDA tensors it launches the kernels or raises.
 """
@@ -87,6 +93,10 @@ LAUNCHES = {"banded_fwd": 0, "banded_tb": 0, "banded_fwd_waves": 0}
 # alone (the benchmark sums its values into DP launches per candidate),
 # and TRACE prices every entry as a DP launch, so neither records it.
 COMPACT_LAUNCHES = 0
+
+# Launches of kmer_table, the downsampling hash table's kernel: no DP
+# launch either.
+KMER_TABLE_LAUNCHES = 0
 
 # Optional launch trace: when a caller sets this to a list, every DP
 # launch appends (name, body, LA, W, B, work, start, end) with CUDA
@@ -264,6 +274,9 @@ def build_kernels(force: bool = False) -> float:
             # out_bytes, stream) (csrc/match_compact.cu).
             lib.match_compact_launch.argtypes = [vp, ci, ci, vp, vp, vp, ci, vp]
             lib.match_compact_launch.restype = ci
+            # kmer_table_launch(out, k, stream) (csrc/kmer_table.cu).
+            lib.kmer_table_launch.argtypes = [vp, ci, vp]
+            lib.kmer_table_launch.restype = ci
             _lib = lib
         return time.perf_counter() - t0
 
@@ -852,6 +865,31 @@ def match_compact_plain(fused, dst, ord0, ord1) -> None:
     pos = dst[rows][r] + torch.arange(r.numel(), device=dev) - first[r]
     ord0[pos] = c.to(ord0.dtype)
     ord1[pos] = mj[r, c].to(ord1.dtype)
+
+
+def kmer_table(out: torch.Tensor, k: int) -> None:
+    """Write the downsampling hash of every k-mer id of k into ``out``
+    ((4^k,) int32 holding the hashes' uint32 bits, contiguous, 16-byte
+    aligned, on a card): for id x, MurmurHash2 of the key x + rc(x), seed
+    13477, as ``data/kmers.py:kmer_downsampling_hash`` (numpy, its plain
+    version) computes it. Launches ``csrc/kmer_table.cu``; raises on
+    anything else."""
+    global KMER_TABLE_LAUNCHES
+    if out.device.type != "cuda":
+        raise ValueError(f"kmer_table: out must be on a card, got {out.device}")
+    if not 1 <= k <= 16:
+        raise ValueError(f"kmer_table: k {k} is not in 1 .. 16")
+    if out.shape != (1 << (2 * k),) or out.dtype != torch.int32 or not out.is_contiguous():
+        raise ValueError(f"kmer_table: out must be a contiguous (4^{k},) int32 tensor, got "
+                         f"{tuple(out.shape)} {out.dtype}")
+    if out.data_ptr() % 16 != 0:
+        raise ValueError("kmer_table: out must be 16-byte aligned")
+    rc = library().kmer_table_launch(
+        out.data_ptr(), k, torch.cuda.current_stream(out.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"kmer_table launch failed (cudaError {rc}) at k={k}")
+    KMER_TABLE_LAUNCHES += 1
 
 
 def resolve_device(device) -> torch.device:

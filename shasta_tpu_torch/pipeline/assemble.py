@@ -33,7 +33,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from shasta_tpu_torch.data.kmers import KmerTable, select_kmers_random
+from shasta_tpu_torch.data.kmers import LAST_BUILD, KmerTable, select_kmers_random
 from shasta_tpu_torch.data.markers import MarkerStore, find_markers
 from shasta_tpu_torch.data.reads import ReadStore, build_read_store
 from shasta_tpu_torch.data.store import RunStore
@@ -127,7 +127,7 @@ class Assembler:
         self.log = PerformanceLog(os.path.join(run_dir, "performance.log"))
 
         self.reads: Optional[ReadStore] = None
-        self.kmer_table: Optional[KmerTable] = None
+        self.kmer_table = None
         self.markers: Optional[MarkerStore] = None
         self.candidates: Optional[LH.CandidatePairs] = None
         self.alignments: Optional[AlignmentStore] = None
@@ -253,6 +253,18 @@ class Assembler:
                     for i, c in enumerate(hist):
                         if c:
                             f.write(f"{i},{c}\n")
+
+    @property
+    def kmer_table(self) -> Optional[KmerTable]:
+        """The k-mer table. Every table set here is given the run's
+        device, where its downsampling hash table is built."""
+        return self._kmer_table
+
+    @kmer_table.setter
+    def kmer_table(self, table: Optional[KmerTable]) -> None:
+        if table is not None:
+            table.device = self.device
+        self._kmer_table = table
 
     def select_kmers(self) -> None:
         ck = self.config.kmers
@@ -502,13 +514,19 @@ class Assembler:
             else:
                 # Method 3: band discovery from downsampled markers
                 # feeding the banded DP engine.
+                ds_table = self.kmer_table.downsampling_hash_table()
+                self.log.line(
+                    f"Downsampling hash table for k {LAST_BUILD['k']}: built once in "
+                    f"this process on the {LAST_BUILD['path']}, in "
+                    f"{LAST_BUILD['seconds']:.3f} s."
+                )
                 self.alignments = align_candidates(
                     self.markers,
                     self.candidates.read_id0,
                     self.candidates.read_id1,
                     self.candidates.same_strand,
                     params,
-                    self.kmer_table.downsampling_hash_table(),
+                    ds_table,
                     device=self.device,
                 )
                 self.log.line(

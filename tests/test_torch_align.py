@@ -346,19 +346,26 @@ def test_band_reduce_matches_host_mapping():
 @pytest.mark.parametrize("k", [6, 10])
 def test_downsampling_table_once_per_k_equals_jax(k):
     """The downsampling hash table equals the JAX package's, element for
-    element; two tables of one k share one read-only array, and a table
-    of another k in between does not change it."""
+    element; two tables of one k share one read-only array, with or
+    without the CPU as their device, and a table of another k in between
+    does not change it. Without a card every build is numpy's."""
     from shasta_tpu.data.kmers import KmerTable as RefKmerTable
+    from shasta_tpu_torch.data import kmers as KM
     from shasta_tpu_torch.data.kmers import KmerTable
 
+    builds = dict(KM.TABLE_BUILDS)
     is_marker = np.zeros(1 << (2 * k), bool)
     first = KmerTable(k, is_marker).downsampling_hash_table()
     want = RefKmerTable(k, is_marker).downsampling_hash_table()
     assert first.dtype == want.dtype and np.array_equal(first, want)
     assert KmerTable(k, is_marker.copy()).downsampling_hash_table() is first
+    assert KmerTable(k, is_marker.copy(), device="cpu").downsampling_hash_table() is first
     assert not first.flags.writeable
     with pytest.raises(ValueError):
         first[0] = 0
     other = KmerTable(k - 1, np.zeros(1 << (2 * k - 2), bool)).downsampling_hash_table()
     assert other.shape == (1 << (2 * k - 2),)
     assert np.array_equal(KmerTable(k, is_marker).downsampling_hash_table(), want)
+    assert builds["host"] + 2 <= KM.TABLE_BUILDS["host"] <= builds["host"] + 3
+    assert KM.TABLE_BUILDS["device"] == builds["device"]
+    assert KM.LAST_BUILD["k"] == k and KM.LAST_BUILD["path"] == "host"

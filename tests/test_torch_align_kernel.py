@@ -269,7 +269,7 @@ def test_build_takes_every_source(tmp_path, monkeypatch):
     cu, cuh = K.kernel_sources()
     assert [os.path.basename(c) for c in cu] == [
         "banded_align.cu", "banded_fwd_diag.cu", "banded_tb.cu", "int32_peak.cu",
-        "match_compact.cu",
+        "kmer_table.cu", "match_compact.cu",
     ]
     assert [os.path.basename(h) for h in cuh] == ["banded_common.cuh"]
     compiles, link = K.build_commands("nvcc", str(tmp_path / "lib.so"))

@@ -573,3 +573,97 @@ def test_bench_roofline_waves_on_card(card, waves):
     kw = dict(LA=args[0].shape[1], LB=args[2].shape[1], W=PB.ROOFLINE_W, **PB.SCORES)
     assert torch.equal(K.banded_align_pairs(*args, waves=waves, **kw),
                        K.banded_align_pairs_plain(*args, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", range(1, 13))
+def test_kmer_table_every_id_on_card(card, k):
+    """csrc/kmer_table.cu at every id of k 1 to 12, in one launch, against
+    the numpy hash bit for bit."""
+    from shasta_tpu_torch.data.kmers import kmer_downsampling_hash
+
+    n = 1 << (2 * k)
+    out = torch.empty(n, dtype=torch.int32, device=card)
+    before = K.KMER_TABLE_LAUNCHES
+    K.kmer_table(out, k)
+    torch.cuda.synchronize()
+    assert K.KMER_TABLE_LAUNCHES == before + 1
+    want = kmer_downsampling_hash(np.arange(n, dtype=np.uint64), k)
+    assert np.array_equal(out.cpu().numpy().view(np.uint32), want)
+
+
+@pytest.mark.cuda
+def test_kmer_table_k14_on_card(card, monkeypatch):
+    """At k 14, the whole table through data/kmers.py's card path, one
+    launch: the first and last 2^20 ids, ids at an odd offset, and a
+    stride of 4099 ids across the whole range, bit for bit."""
+    from shasta_tpu_torch.data import kmers as KM
+
+    k, n = 14, 1 << 28
+    monkeypatch.setattr(KM, "_TABLES", {})
+    before = K.KMER_TABLE_LAUNCHES
+    table = KM.downsampling_hash_table(k, card)
+    assert K.KMER_TABLE_LAUNCHES == before + 1
+    assert KM.LAST_BUILD["path"] == "device" and table.shape == (n,) and table.dtype == np.uint32
+    ranges = [(0, 1 << 20), (n - (1 << 20), 1 << 20), (12345, 1001)]
+    ids = np.concatenate([np.arange(first, first + count) for first, count in ranges]
+                         + [np.arange(0, n, 4099)]).astype(np.uint64)
+    assert np.array_equal(table[ids.astype(np.int64)], KM.kmer_downsampling_hash(ids, k))
+
+
+@pytest.mark.cuda
+def test_table_builds_once_per_k_on_card(card, monkeypatch):
+    """TABLE_BUILDS counts one card build per k in a process: later calls
+    at that k, from a table on the card or on no device, return the same
+    object; the next k is one more build."""
+    from shasta_tpu_torch.data import kmers as KM
+
+    monkeypatch.setattr(KM, "_TABLES", {})
+    builds, launches = dict(KM.TABLE_BUILDS), K.KMER_TABLE_LAUNCHES
+    kt = KM.KmerTable(11, np.zeros(1 << 22, bool), device=card)
+    first = kt.downsampling_hash_table()
+    assert kt.downsampling_hash_table() is first
+    assert KM.KmerTable(11, kt.is_marker).downsampling_hash_table() is first
+    assert KM.TABLE_BUILDS == {"device": builds["device"] + 1, "host": builds["host"]}
+    assert K.KMER_TABLE_LAUNCHES == launches + 1
+    KM.downsampling_hash_table(12, card)
+    assert KM.TABLE_BUILDS == {"device": builds["device"] + 2, "host": builds["host"]}
+
+
+@pytest.mark.cuda
+def test_mode0_run_table_on_card_equals_host_table(card, tmp_path, monkeypatch):
+    """The mode-0 golden input on the card, once with the downsampling
+    table built on the card and once with it built on the host: every
+    stage hash, the Alignments stage among them, is equal."""
+    from shasta_tpu_torch.data import kmers as KM
+    from shasta_tpu_torch.pipeline.assemble import run_assembly
+    from shasta_tpu_torch.pipeline.config import AssemblyConfig
+    from tests.torch_common import stage_hashes
+
+    def config():
+        cfg = AssemblyConfig()
+        cfg.reads.min_read_length = 500
+        cfg.kmers.k = 8
+        cfg.kmers.probability = 0.1
+        cfg.min_hash.hash_fraction = 0.05
+        cfg.min_hash.min_hash_iteration_count = 6
+        cfg.min_hash.max_bucket_size = 60
+        cfg.align.min_aligned_marker_count = 20
+        cfg.align.max_skip = cfg.align.max_drift = cfg.align.max_trim = 60
+        cfg.read_graph.max_alignment_count = 8
+        cfg.marker_graph.min_coverage = 3
+        return cfg
+
+    fasta = str(tmp_path / "reads.fasta")
+    genome = synth.random_genome(25000, seed=4242)
+    synth.write_fasta(fasta, synth.sample_reads(genome, 130, 3000, seed=4243, both_strands=True))
+    monkeypatch.setattr(KM, "_TABLES", {})
+    builds = dict(KM.TABLE_BUILDS)
+    run_assembly([fasta], str(tmp_path / "card"), config(), device=card)
+    assert KM.TABLE_BUILDS == {"device": builds["device"] + 1, "host": builds["host"]}
+    KM._TABLES.clear()
+    KM.downsampling_hash_table(8)
+    run_assembly([fasta], str(tmp_path / "host"), config(), device=card)
+    assert KM.TABLE_BUILDS == {"device": builds["device"] + 1, "host": builds["host"] + 1}
+    on_card, on_host = stage_hashes(str(tmp_path / "card")), stage_hashes(str(tmp_path / "host"))
+    assert "Alignments" in on_card and on_card == on_host
