@@ -278,17 +278,26 @@ def phase_device_and_build():
         f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}"
     )
-    native_ok = []
-    t = threading.Thread(target=lambda: native_ok.append(native.available()))
+    native_err = []
+
+    def build_native():
+        try:
+            native.get_lib()
+        except RuntimeError as e:
+            native_err.append(e)
+
+    t = threading.Thread(target=build_native)
     t0 = time.perf_counter()
     t.start()
     nvcc_s = K.build_kernels(force=True)
     t.join()
+    if native_err:
+        raise native_err[0]
     log(
         f"build: nvcc {nvcc_s:.2f}s ("
         + ", ".join(os.path.basename(c) for c in K.kernel_sources()[0])
-        + f", one nvcc each, sm_90a); native host library "
-        f"{'ok' if native_ok[0] else 'unavailable'}; wall {time.perf_counter() - t0:.2f}s"
+        + f", one nvcc each, sm_90a); native host library ok; "
+        f"wall {time.perf_counter() - t0:.2f}s"
     )
     ptxas = {}
     for src, report in K.PTXAS_REPORT.items():

@@ -4,23 +4,15 @@ The reference uses spoa partial-order alignment (NW, match 1,
 mismatch -1, gap -1) over the distinct intervening sequences of a
 marker graph edge, entered in decreasing frequency order
 (reference: src/AssemblerMarkerGraph.cpp:3545-3566, scoring at
-src/AssemblerMarkerGraph.cpp:4908-4913).
-
-Here we use a center-star MSA with the same scoring: every other
-sequence is NW-aligned against the first (most frequent) sequence and
-the pairwise alignments are merged column-wise ("once a gap, always a
-gap"). For the dominant consensus cases — all sequences equal, or
-small indel/substitution variants of the most frequent sequence — this
-produces the same consensus columns as POA at a fraction of the
-complexity, and it vectorizes: the pairwise NW against the single
-center is a batched DP, the same kernel family as the marker
-alignment. Exact POA can be swapped in per edge class later without
-changing callers.
+src/AssemblerMarkerGraph.cpp:4908-4913). ``poa_msa`` runs the native
+library's partial-order alignment (native/poa.cpp); ``nw_align`` is a
+global pairwise NW with spoa's move preferences, which mode 2's bubble
+pass and iterative assembly use.
 """
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List
 
 import numpy as np
 
@@ -68,94 +60,12 @@ def nw_align(a: np.ndarray, b: np.ndarray, match=1, mismatch=-1, gap=-1):
     return np.array(ai[::-1], np.int64), np.array(bi[::-1], np.int64)
 
 
-def center_star_msa(seqs: List[np.ndarray]) -> List[np.ndarray]:
-    """MSA of sequences (uint8 base codes); seqs[0] is the center.
-
-    Returns aligned rows (uint8, value 4 = gap), all equal length.
-    """
-    n = len(seqs)
-    if n == 1:
-        return [seqs[0].astype(np.uint8)]
-    center = seqs[0]
-    lc = center.shape[0]
-
-    # Pairwise alignments against the center. For each, record how many
-    # insertions (gaps in the center) occur before each center position.
-    pair_rows = []
-    ins_before = np.zeros((n - 1, lc + 1), dtype=np.int64)
-    for t in range(1, n):
-        ai, bi = nw_align(center, seqs[t])
-        pair_rows.append((ai, bi))
-        # count gap-in-center runs: positions where ai == -1, attributed
-        # to the next center index.
-        nxt = 0
-        run = 0
-        for k in range(ai.shape[0]):
-            if ai[k] == -1:
-                run += 1
-            else:
-                ins_before[t - 1, ai[k]] = max(ins_before[t - 1, ai[k]], run)
-                run = 0
-                nxt = ai[k] + 1
-        ins_before[t - 1, lc] = max(ins_before[t - 1, lc], run)
-
-    # Merged column layout: before each center position p there are
-    # max_ins[p] insertion columns.
-    max_ins = ins_before.max(axis=0)
-    col_of_center = np.zeros(lc, dtype=np.int64)
-    width = 0
-    for p in range(lc):
-        width += int(max_ins[p])
-        col_of_center[p] = width
-        width += 1
-    width += int(max_ins[lc])
-
-    rows = [np.full(width, GAP, dtype=np.uint8) for _ in range(n)]
-    rows[0][col_of_center] = center
-
-    for t in range(1, n):
-        ai, bi = pair_rows[t - 1]
-        out = rows[t]
-        # Walk the pairwise alignment, placing b's characters.
-        run = 0
-        for k in range(ai.shape[0]):
-            if ai[k] == -1:
-                # insertion before next center position
-                # find next center index
-                nxt = lc
-                for kk in range(k + 1, ai.shape[0]):
-                    if ai[kk] != -1:
-                        nxt = int(ai[kk])
-                        break
-                base_col = col_of_center[nxt] if nxt < lc else width
-                col = base_col - (_count_ins_after(ai, k))
-                if bi[k] >= 0:
-                    out[col] = seqs[t][bi[k]]
-            else:
-                if bi[k] >= 0:
-                    out[col_of_center[ai[k]]] = seqs[t][bi[k]]
-    return rows
-
-
-def _count_ins_after(ai: np.ndarray, k: int) -> int:
-    """Number of consecutive insertion steps at/after k until the next
-    center-consuming step (including step k)."""
-    c = 0
-    for kk in range(k, ai.shape[0]):
-        if ai[kk] == -1:
-            c += 1
-        else:
-            break
-    return c
-
-
 def poa_msa(seqs: List[np.ndarray]) -> List[np.ndarray]:
     """Partial-order-alignment MSA (the algorithm the reference gets
     from the spoa library, reference: src/AssemblerMarkerGraph.cpp:2001
     -2010 and :3540-3560). Sequences should be ordered by decreasing
     frequency (the reference adds them to the spoa graph in that
-    order). Falls back to the center-star approximation when the
-    native library is unavailable.
+    order). Runs native/poa.cpp through the native library.
 
     Returns aligned rows (uint8, value 4 = gap), all equal length.
     """
@@ -166,11 +76,8 @@ def poa_msa(seqs: List[np.ndarray]) -> List[np.ndarray]:
         return [seqs[0].astype(np.uint8)]
     from shasta_tpu_torch import native
 
-    rows = native.poa_msa_native(seqs)
-    if rows is None:
-        return center_star_msa(seqs)
     out = []
-    for r in rows:
+    for r in native.poa_msa_native(seqs):
         r = r.copy()
         r[r == 255] = GAP
         out.append(r)

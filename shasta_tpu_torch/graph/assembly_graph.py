@@ -240,8 +240,8 @@ def _native_mode2_consensus(
     """Batched native consensus for ALL mode-2 edges (native/poa.cpp
     edge_consensus_batch: dedup + POA + column consensus per edge,
     threaded over 4-8 cores like the reference's thread pool).
-    Returns (edges, lengths, dense col_offsets, seq, rep) or None when
-    the native library is unavailable."""
+    Returns (edges, lengths, dense col_offsets, seq, rep), or None when
+    no edge qualifies."""
     from shasta_tpu_torch import native
 
     slow_mask = np.zeros(has_long.shape[0], bool)
@@ -261,130 +261,12 @@ def _native_mode2_consensus(
         kwargs = dict(
             priors=caller.model.priors, likelihood=caller.model.likelihood
         )
-    res = native.edge_consensus_batch_native(
+    out_b, out_r, out_len = native.edge_consensus_batch_native(
         fill_b, fill_r, fill_off, u_iv, edge_iv_off, mode, **kwargs
-    )
-    if res is None:
-        return None
-    out_b, out_r, out_len = res  # already compacted per edge
+    )  # already compacted per edge
     col_off = np.zeros(m2_edges.shape[0] + 1, np.int64)
     np.cumsum(out_len, out=col_off[1:])
     return m2_edges, out_len, col_off, out_b, out_r
-
-
-def _uniform_mode2_consensus(
-    caller, caller_name, k, slow_edges, has_long, edge_of_iv,
-    iv_off, iv_sel, fill_b, fill_r, fill_off,
-):
-    """Vectorized consensus for mode-2 edges whose used intervals all
-    carry the SAME fill sequence (no MSA needed): consensus base = the
-    sequence; per-column repeat consensus over the occurrences,
-    matching the per-edge loop exactly for Modal/Median/Bayesian.
-
-    Returns (edges, lengths, col_offsets, seq_flat, rep_flat) or None
-    when no edge qualifies. Only called for slow (non-mode-1) edges;
-    has_long edges are excluded (they take the pathological branch).
-    """
-    slow_mask = np.zeros(has_long.shape[0], bool)
-    slow_mask[slow_edges] = True
-    mode2_mask = slow_mask & ~has_long
-    u_iv = np.flatnonzero(mode2_mask[edge_of_iv[iv_sel]] & (iv_off[iv_sel] > k))
-    if u_iv.shape[0] == 0:
-        return None
-    # u_iv indexes iv_sel-space (== fill rows); intervals of one edge
-    # are contiguous and edges ascend.
-    e_iv = edge_of_iv[iv_sel[u_iv]]
-    m2_edges = np.unique(e_iv)
-    starts = np.searchsorted(e_iv, m2_edges)
-    L = (fill_off[u_iv + 1] - fill_off[u_iv]).astype(np.int64)
-    Lmin = np.minimum.reduceat(L, starts)
-    Lmax = np.maximum.reduceat(L, starts)
-    same_len = Lmin == Lmax
-
-    # Content equality vs each edge's first used interval, one flat
-    # pass over every fill position.
-    rank_of_iv = np.searchsorted(m2_edges, e_iv)
-    first_fill_off = fill_off[u_iv[starts]]
-    n_pos = int(L.sum())
-    pos_t = np.arange(n_pos, dtype=np.int64) - np.repeat(
-        np.concatenate([[0], np.cumsum(L)[:-1]]), L
-    )
-    own_pos = np.repeat(fill_off[u_iv], L) + pos_t
-    ref_pos = np.repeat(first_fill_off[rank_of_iv], L) + pos_t
-    # Same-length guard: unequal-length edges may index out of their
-    # reference fill; clamp (they are discarded by same_len anyway).
-    ref_pos = np.minimum(ref_pos, fill_b.shape[0] - 1)
-    neq = fill_b[own_pos] != fill_b[ref_pos]
-    bad_iv = np.zeros(u_iv.shape[0], bool)
-    np.logical_or.at(bad_iv, np.repeat(np.arange(u_iv.shape[0]), L), neq)
-    bad_edge = np.zeros(m2_edges.shape[0], bool)
-    np.logical_or.at(bad_edge, rank_of_iv, bad_iv)
-    uniform = same_len & ~bad_edge
-    if not uniform.any():
-        return None
-
-    u_edges = m2_edges[uniform]
-    u_len = Lmin[uniform]
-    col_off = np.zeros(u_edges.shape[0] + 1, np.int64)
-    np.cumsum(u_len, out=col_off[1:])
-    n_cols = int(col_off[-1])
-
-    # Consensus bases: each uniform edge's first fill, flat.
-    u_first = first_fill_off[uniform]
-    seq_pos = np.repeat(u_first, u_len) + (
-        np.arange(n_cols, dtype=np.int64) - np.repeat(col_off[:-1], u_len)
-    )
-    cons_base = fill_b[seq_pos]
-
-    # Per-(column, occurrence) repeat observations: every used interval
-    # of a uniform edge contributes its reps at global columns
-    # col_off[rank] + t.
-    keep_iv = uniform[rank_of_iv]
-    ki = np.flatnonzero(keep_iv)
-    rank_u = np.searchsorted(u_edges, e_iv[ki])
-    Lk = L[ki]
-    nk = int(Lk.sum())
-    t_k = np.arange(nk, dtype=np.int64) - np.repeat(
-        np.concatenate([[0], np.cumsum(Lk)[:-1]]), Lk
-    )
-    col_of_obs = np.repeat(col_off[rank_u], Lk) + t_k
-    rep_obs = fill_r[np.repeat(fill_off[u_iv[ki]], Lk) + t_k].astype(np.int64)
-
-    if caller_name in ("Modal", "Median"):
-        # Sort-based per-column mode/median (reps < 256: uint8 store).
-        key = col_of_obs * 256 + rep_obs
-        key.sort()
-        uk, cnts = np.unique(key, return_counts=True)
-        cols_r = uk >> 8
-        reps_r = uk & 255
-        starts_r = np.searchsorted(cols_r, np.arange(n_cols))
-        if caller_name == "Modal":
-            maxc = np.maximum.reduceat(cnts, starts_r)
-            best = cnts == maxc[cols_r]
-            bi = np.flatnonzero(best)
-            firsts = bi[np.unique(cols_r[bi], return_index=True)[1]]
-        else:
-            tot = np.add.reduceat(cnts, starts_r)
-            csum = np.cumsum(cnts)
-            base_c = csum[starts_r] - cnts[starts_r]
-            over = (csum - base_c[cols_r]) > (tot // 2)[cols_r]
-            oi = np.flatnonzero(over)
-            firsts = oi[np.unique(cols_r[oi], return_index=True)[1]]
-        cons_rep = reps_r[firsts].astype(np.int64)
-    else:  # Bayesian (repeat_counts_batch)
-        max_in = caller.model.max_input_runlength
-        obs = np.minimum(rep_obs, max_in)
-        counts = np.bincount(
-            col_of_obs * (max_in + 1) + obs,
-            minlength=n_cols * (max_in + 1),
-        ).reshape(n_cols, max_in + 1).astype(np.float64)
-        prior_idx = np.where((cons_base == 0) | (cons_base == 3), 0, 1)
-        cons_rep = caller.repeat_counts_batch(
-            counts, prior_idx, cons_base.astype(np.int64)
-        ).astype(np.int64)
-
-    rep_flat = np.maximum(cons_rep, 1).astype(np.int32)
-    return u_edges, u_len, col_off, cons_base.astype(np.uint8), rep_flat
 
 
 def assemble_marker_graph_edges(
@@ -517,41 +399,23 @@ def assemble_marker_graph_edges(
     fill_of_iv = np.full(n_iv, -1, idt)
     fill_of_iv[iv_sel] = np.arange(iv_sel.shape[0], dtype=idt)
 
-    # ---- Uniform mode-2 fast path ----
-    # The majority of mode-2 edges (57% measured at 5 Mb / 1% errors)
-    # have exactly ONE distinct fill sequence across their used
-    # intervals: consensus = that sequence, per-column repeat
-    # consensus over the occurrences — no MSA. Resolve them all at
-    # once; the Python loop below then visits only genuinely
-    # polymorphic edges. Semantics identical to the loop (the
-    # SHASTA_TORCH_UNIFORM_FAST=0 oracle path, equality-tested).
-    uniform_results = None
-    import os as _os
-
+    # ---- Mode-2 edges: the native batch ----
+    # Every mode-2 edge without a long interval (dedup + POA + column
+    # consensus in C++, threaded); the loop below then visits only the
+    # edges it does not take: long intervals, and every slow edge of a
+    # caller the batch does not implement.
+    batch_results = None
     caller_name = getattr(caller, "name", "")
     fast_capable = caller_name in ("Modal", "Median") or hasattr(
         caller, "repeat_counts_batch"
     )
     if fast_capable and slow_edges.shape[0]:
-        # Preferred: the threaded native batch handles every mode-2
-        # edge (dedup + POA + column consensus in C++). Fallbacks: the
-        # vectorized uniform-fill path (mode-2 edges with one distinct
-        # sequence), then the per-edge Python loop.
-        if _os.environ.get("SHASTA_TORCH_NATIVE_CONSENSUS", "1") != "0":
-            uniform_results = _native_mode2_consensus(
-                caller, caller_name, k, slow_edges, has_long, edge_of_iv,
-                iv_off, iv_sel, fill_b, fill_r, fill_off,
-            )
-        if (
-            uniform_results is None
-            and _os.environ.get("SHASTA_TORCH_UNIFORM_FAST", "1") != "0"
-        ):
-            uniform_results = _uniform_mode2_consensus(
-                caller, caller_name, k, slow_edges, has_long, edge_of_iv,
-                iv_off, iv_sel, fill_b, fill_r, fill_off,
-            )
-    if uniform_results is not None:
-        u_edges, u_len, u_col_off, u_seq, u_rep = uniform_results
+        batch_results = _native_mode2_consensus(
+            caller, caller_name, k, slow_edges, has_long, edge_of_iv,
+            iv_off, iv_sel, fill_b, fill_r, fill_off,
+        )
+    if batch_results is not None:
+        u_edges, u_len, u_col_off, u_seq, u_rep = batch_results
         lengths[u_edges] = u_len
         done_mask = np.zeros(n_edges, bool)
         done_mask[u_edges] = True
@@ -702,7 +566,7 @@ def assemble_marker_graph_edges(
     total = int(offsets[-1])
     seq = np.zeros(total, np.uint8)
     rep = np.zeros(total, np.int32)
-    if uniform_results is not None and total:
+    if batch_results is not None and total:
         # Bulk scatter of the fast-path consensus into edge order.
         dst = np.repeat(offsets[u_edges], u_len) + (
             np.arange(int(u_col_off[-1]), dtype=np.int64)

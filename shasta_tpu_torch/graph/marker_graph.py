@@ -43,44 +43,12 @@ INVALID_VERTEX = np.int64(-1)
 
 def union_find_labels(n: int, u: np.ndarray, v: np.ndarray) -> np.ndarray:
     """Connected-component label (min element id) for each of n items
-    under the unions (u[i], v[i]).
-
-    Iterative hooking: scatter-min each pair's smaller label onto the
-    larger label's representative, then pointer-jump to convergence.
+    under the unions (u[i], v[i]): the native sequential min-root DSU.
     Deterministic regardless of pair order.
     """
-    label = np.arange(n, dtype=np.int64)
-    if u.shape[0] == 0:
-        return label
-    u = np.asarray(u, dtype=np.int64)
-    v = np.asarray(v, dtype=np.int64)
-    if u.shape[0] >= 1 << 20:
-        # Sequential min-root DSU (identical labels, equality-tested);
-        # the pointer-jumping form below remains the sharded/mesh
-        # formulation and the fallback.
-        from shasta_tpu_torch import native
+    from shasta_tpu_torch import native
 
-        out = native.union_find_min_labels_native(n, u, v)
-        if out is not None:
-            return out
-    while True:
-        lu = label[u]
-        lv = label[v]
-        diff = lu != lv
-        if not diff.any():
-            break
-        lu = lu[diff]
-        lv = lv[diff]
-        lo = np.minimum(lu, lv)
-        hi = np.maximum(lu, lv)
-        np.minimum.at(label, hi, lo)
-        # Pointer jumping until fully compressed.
-        while True:
-            nl = label[label]
-            if np.array_equal(nl, label):
-                break
-            label = nl
-    return label
+    return native.union_find_min_labels_native(n, u, v)
 
 
 # ---------------------------------------------------------------------------
@@ -122,19 +90,16 @@ def union_find_labels_from_alignments(
     graph: ReadGraph,
     alignments: AlignmentStore,
     is_chimeric: Optional[np.ndarray] = None,
-) -> Optional[np.ndarray]:
+) -> np.ndarray:
     """Min-id component labels computed by STREAMING every selected
     alignment's unite pairs (and their reverse complements) straight
     into the native sequential DSU — labels identical to
     gather_unite_pairs + union_find_labels (equality-tested) without
     the 16-byte-per-pair u/v arrays, the run's largest transient at
     genome scale. The reference's unites stream through its lock-free
-    DSU the same way (src/AssemblerMarkerGraph.cpp:590-604). Returns
-    None when the native library is unavailable."""
+    DSU the same way (src/AssemblerMarkerGraph.cpp:590-604)."""
     from shasta_tpu_torch import native
 
-    if native.get_lib() is None:
-        return None
     orid0, orid1, lo, hi = _selected_alignment_ranges(
         markers, graph, alignments, is_chimeric
     )
@@ -166,39 +131,13 @@ def gather_unite_pairs(
     )
     if orid0.shape[0] == 0:
         return np.zeros(0, np.int64), np.zeros(0, np.int64)
-    if int((hi - lo).sum()) >= 1 << 20:
-        # Threaded one-pass native expansion (pair ORDER differs from
-        # the numpy path — interleaved direct/rc — but every consumer
-        # is order-independent; equality-tested as a sorted multiset).
-        from shasta_tpu_torch import native
+    # One threaded native pass; each pair lands beside its reverse
+    # complement, and every consumer is order-independent.
+    from shasta_tpu_torch import native
 
-        out = native.expand_unite_pairs_native(
-            moff, counts, orid0, orid1, lo, hi,
-            alignments.ord0, alignments.ord1,
-        )
-        if out is not None:
-            return out
-    n_per = (hi - lo).astype(np.int64)
-    total = int(n_per.sum())
-    # Flat indices into ord0/ord1 for all selected alignments.
-    idx = np.repeat(lo, n_per) + (
-        np.arange(total, dtype=np.int64)
-        - np.repeat(np.concatenate(([0], np.cumsum(n_per)))[:-1], n_per)
+    return native.expand_unite_pairs_native(
+        moff, counts, orid0, orid1, lo, hi, alignments.ord0, alignments.ord1
     )
-    o0 = alignments.ord0[idx].astype(np.int64)
-    o1 = alignments.ord1[idx].astype(np.int64)
-
-    a_orid0 = np.repeat(orid0, n_per)
-    a_orid1 = np.repeat(orid1, n_per)
-
-    m0 = moff[a_orid0] + o0
-    m1 = moff[a_orid1] + o1
-
-    # Reverse complements: marker (orid, ord) -> (orid^1, count-1-ord).
-    m0r = moff[a_orid0 ^ 1] + (counts[a_orid0] - 1 - o0)
-    m1r = moff[a_orid1 ^ 1] + (counts[a_orid1] - 1 - o1)
-
-    return np.concatenate([m0, m0r]), np.concatenate([m1, m1r])
 
 
 @dataclass
@@ -394,12 +333,10 @@ def create_marker_graph_vertices(
 
     set_starts = np.zeros(reps.shape[0], np.int64)
     np.cumsum(cov[:-1], out=set_starts[1:])
-    order = (
-        _native.counting_sort_by_key32_native(inverse, set_starts)
-        if total >= 1 << 20 and idt is np.int32
-        else None
-    )
-    if order is None:
+    if idt is np.int32:
+        order = _native.counting_sort_by_key32_native(inverse, set_starts)
+    else:
+        # The native sort takes int32 keys: 2^31 markers and more sort here.
         order = np.argsort(inverse, kind="stable")
     g = inverse[order]
 
@@ -446,14 +383,12 @@ def create_marker_graph_vertices(
     n_kept = int(cov[kept_reps_idx].sum())
     vertex_offsets = np.zeros(n_vertices + 1, dtype=np.int64)
     np.cumsum(cov[kept_reps_idx], out=vertex_offsets[1:])
-    vertex_markers = (
-        _native.counting_sort_by_key32_native(
+    if idt is np.int32:
+        vertex_markers = _native.counting_sort_by_key32_native(
             vertex_table, vertex_offsets[:-1], n_out=n_kept
         )
-        if idt is np.int32
-        else None
-    )
-    if vertex_markers is None:
+    else:
+        # The native sort takes int32 keys: 2^31 markers and more sort here.
         keep_marker = vertex_table >= 0
         vm = np.flatnonzero(keep_marker)
         vt = vertex_table[vm]
@@ -585,7 +520,6 @@ def create_marker_graph_edges(markers: MarkerStore, mg: MarkerGraph) -> None:
     # prefer single-key counting passes on this 4-core host).
     from shasta_tpu_torch import native as _native
 
-    order = None
     if idt is np.int32 and mg.vertex_count < 2**31:
         starts_t = np.zeros(mg.vertex_count, np.int64)
         np.cumsum(
@@ -593,19 +527,17 @@ def create_marker_graph_edges(markers: MarkerStore, mg: MarkerGraph) -> None:
             out=starts_t[1:],
         )
         order1 = _native.counting_sort_by_key32_native(tgt, starts_t)
-        if order1 is not None:
-            starts_s = np.zeros(mg.vertex_count, np.int64)
-            np.cumsum(
-                np.bincount(src, minlength=mg.vertex_count)[:-1],
-                out=starts_s[1:],
-            )
-            order2 = _native.counting_sort_by_key32_native(
-                src[order1], starts_s
-            )
-            if order2 is not None:
-                order = order1[order2]
-            del order1
-    if order is None:
+        starts_s = np.zeros(mg.vertex_count, np.int64)
+        np.cumsum(
+            np.bincount(src, minlength=mg.vertex_count)[:-1],
+            out=starts_s[1:],
+        )
+        order = order1[
+            _native.counting_sort_by_key32_native(src[order1], starts_s)
+        ]
+        del order1
+    else:
+        # The native sort takes int32 keys: 2^31 markers and more sort here.
         order = np.lexsort((ord0, orid, tgt, src))
     src = src[order]
     tgt = tgt[order]
@@ -724,9 +656,6 @@ def transitive_reduction(
     # 3. BFS per edge in increasing coverage order (process each RC
     # pair once, from the lower edge id).
     mg.build_adjacency()
-    by_source_off = mg._by_source_off
-    by_source = mg._by_source
-    targets = mg.target
     candidates = np.flatnonzero(
         (cov > low_coverage_threshold)
         & (cov < high_coverage_threshold)
@@ -737,43 +666,7 @@ def transitive_reduction(
 
     from shasta_tpu_torch import native
 
-    if native.transitive_reduction_bfs_native(mg, candidates, max_distance):
-        return
-
-    dist = np.full(mg.vertex_count, -1, dtype=np.int64)
-    for e in candidates:
-        if removed[e]:
-            continue
-        u0 = mg.source[e]
-        u1 = targets[e]
-        # BFS from u0 avoiding edge e over strong edges.
-        q = deque([u0])
-        dist[u0] = 0
-        seen = [u0]
-        found = False
-        while q and not found:
-            v0 = q.popleft()
-            d1 = dist[v0] + 1
-            for ei in by_source[by_source_off[v0] : by_source_off[v0 + 1]]:
-                if ei == e or removed[ei]:
-                    continue
-                v1 = targets[ei]
-                if dist[v1] >= 0:
-                    continue
-                if v1 == u1:
-                    found = True
-                    break
-                dist[v1] = d1
-                seen.append(v1)
-                if d1 < max_distance:
-                    q.append(v1)
-        if found:
-            removed[e] = True
-            rc = mg.rc_edge[e]
-            if rc >= 0:
-                removed[rc] = True
-        for v in seen:
-            dist[v] = -1
+    native.transitive_reduction_bfs_native(mg, candidates, max_distance)
 
 
 def reverse_transitive_reduction(

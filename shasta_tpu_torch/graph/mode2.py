@@ -102,60 +102,10 @@ def create_marker_graph_edges_strict(
 
     from shasta_tpu_torch import native as _native
 
-    hh = (
-        _native.strict_interval_hashes_native(
-            reads.rle_bases, reads.offsets, orid, pos0, pos1, k
-        )
-        if n_int >= 1 << 16
-        else None
+    # One threaded native pass straight from the read store.
+    h, h2 = _native.strict_interval_hashes_native(
+        reads.rle_bases, reads.offsets, orid, pos0, pos1, k
     )
-    if hh is not None:
-        # Threaded native pass straight from the read store — no flat
-        # expansion crosses memory.
-        h, h2 = hh
-    else:
-        total = int(seq_len.sum())
-        starts = np.concatenate(([0], np.cumsum(seq_len)))
-        int_id = np.repeat(np.arange(n_int, dtype=np.int64), seq_len)
-        pos_in = np.arange(total, dtype=np.int64) - starts[int_id]
-        pos_flat = seq_lo[int_id] + pos_in
-        rid = (orid >> 1).astype(np.int64)
-        lo_off = reads.offsets[rid]
-        hi_off = reads.offsets[rid + 1]
-        comp = (orid & 1).astype(bool)
-        idx_flat = np.where(
-            comp[int_id],
-            hi_off[int_id] - 1 - pos_flat,
-            lo_off[int_id] + pos_flat,
-        )
-        b_flat = reads.rle_bases[idx_flat].astype(np.uint64)
-        b_flat = np.where(comp[int_id], np.uint64(3) - b_flat, b_flat)
-        P1 = np.uint64(0x100000001B3)
-        P2 = np.uint64(0x9E3779B97F4A7C15)
-        max_len = int(seq_len.max()) if n_int else 0
-        powtab1 = np.ones(max(max_len, 1), dtype=np.uint64)
-        powtab2 = np.ones(max(max_len, 1), dtype=np.uint64)
-        with np.errstate(over="ignore"):  # wrap mod 2^64 is intended
-            for t in range(1, max_len):
-                powtab1[t] = powtab1[t - 1] * P1
-                powtab2[t] = powtab2[t - 1] * P2
-        h = np.zeros(n_int, dtype=np.uint64)
-        h2 = np.zeros(n_int, dtype=np.uint64)
-        if total:
-            with np.errstate(over="ignore"):
-                bp1 = b_flat + np.uint64(1)
-                contrib = bp1 * powtab1[pos_in]
-                contrib2 = bp1 * powtab2[pos_in]
-            starts_nonempty = starts[:-1][seq_len > 0]
-            h[seq_len > 0] = np.add.reduceat(contrib, starts_nonempty)
-            h2[seq_len > 0] = np.add.reduceat(contrib2, starts_nonempty)
-        overlap = pos1 < seq_lo
-        sent = np.uint64(0xFFFF000000000000) + (seq_lo - pos1)[
-            overlap
-        ].astype(np.uint64)
-        h[overlap] = sent
-        h2[overlap] = sent
-
 
     # Group by (src, tgt, length, hash). Intervals enter already
     # sorted by (orid, ord0) — ``valid`` ascends in global marker id —
@@ -169,14 +119,9 @@ def create_marker_graph_edges_strict(
 
     def _stable_counting_pass(key, n_bins, perm):
         k = key[perm]
-        if _native.available() and n_bins <= k.shape[0] * 4:
-            counts = np.bincount(k, minlength=n_bins)
-            starts = np.zeros(n_bins, np.int64)
-            np.cumsum(counts[:-1], out=starts[1:])
-            o = _native.counting_sort_by_key_native(k, starts)
-            if o is not None:
-                return perm[o]
-        return perm[np.argsort(k, kind="stable")]
+        starts = np.zeros(n_bins, np.int64)
+        np.cumsum(np.bincount(k, minlength=n_bins)[:-1], out=starts[1:])
+        return perm[_native.counting_sort_by_key_native(k, starts)]
 
     order = np.argsort(h2, kind="stable")
     order = order[np.argsort(h[order], kind="stable")]

@@ -1209,40 +1209,6 @@ def hierarchical_phase(g: AssemblyGraph2, p: Mode2Parameters) -> int:
     return iterations
 
 
-def _debug_dump_phasing(g: AssemblyGraph2) -> None:
-    """SHASTA_TORCH_PHASE_DEBUG=<path>: pickle the phasing state (every
-    diploid bubble's component/phase/branch sequences/read sides plus
-    the bubble chains) for offline switch-error diagnosis against a
-    known truth genome. Diagnostic-only; not part of the output set."""
-    import os
-    import pickle
-
-    path = os.environ.get("SHASTA_TORCH_PHASE_DEBUG")
-    if not path:
-        return
-    bubbles = []
-    for eid in sorted(g.edges):
-        e = g.edges[eid]
-        if e.ploidy != 2:
-            continue
-        bubbles.append(
-            {
-                "eid": eid,
-                "v0": e.v0,
-                "v1": e.v1,
-                "component": e.component,
-                "phase": e.phase,
-                "seq0": e.branches[0].raw_sequence,
-                "seq1": e.branches[1].raw_sequence,
-                "reads0": e.branches[0].reads,
-                "reads1": e.branches[1].reads,
-            }
-        )
-    chains = [list(c.edges) for c in g.bubble_chains]
-    with open(path, "wb") as f:
-        pickle.dump({"bubbles": bubbles, "chains": chains}, f)
-
-
 def run_assembly_graph2(
     g: AssemblyGraph2,
     p: Mode2Parameters,
@@ -1250,53 +1216,42 @@ def run_assembly_graph2(
     """The full reference constructor sequence
     (reference: src/AssemblyGraph2.cpp:44-233). The graph must have an
     assembler installed (set_assembler) before calling."""
-    import os as _os
-
-    _skip = set(
-        s for s in _os.environ.get("SHASTA_TORCH_M2_SKIP", "").split(",") if s
-    )
-
     g.create()
     g.prune(p.prune_length)
     g.remove_short_loopback_edges(p.superbubble_edge_length_threshold)
     g.gather_bubbles()
-    if "superbubbles" not in _skip:
-        g.handle_superbubbles0(
-            p.superbubble_edge_length_threshold,
-            p.superbubble_max_size,
-            p.superbubble_max_chunk_size,
-            p.superbubble_max_chunk_path_count,
-            False,
-            False,
-        )
-        g.merge(False, False)
-        g.handle_superbubbles1(
-            p.superbubble_max_size,
-            p.superbubble_max_chunk_size,
-            p.superbubble_max_chunk_path_count,
-            False,
-            False,
-        )
-        g.merge(False, False)
+    g.handle_superbubbles0(
+        p.superbubble_edge_length_threshold,
+        p.superbubble_max_size,
+        p.superbubble_max_chunk_size,
+        p.superbubble_max_chunk_path_count,
+        False,
+        False,
+    )
+    g.merge(False, False)
+    g.handle_superbubbles1(
+        p.superbubble_max_size,
+        p.superbubble_max_chunk_size,
+        p.superbubble_max_chunk_path_count,
+        False,
+        False,
+    )
+    g.merge(False, False)
     g.store_read_information()
-    if "weak" not in _skip:
-        g.remove_weak_branches(p.strong_branch_threshold)
-        g.merge(True, False)
+    g.remove_weak_branches(p.strong_branch_threshold)
+    g.merge(True, False)
     g.gather_bubbles()
     g.force_maximum_ploidy(2)
     g.assemble_all()
     g.remove_degenerate_branches()
     g.merge(True, True)
     g.prune(p.prune_length)
-    n_bad = 0
-    if "bad" not in _skip:
-        n_bad = remove_bad_bubbles_iterative(g, p)
+    n_bad = remove_bad_bubbles_iterative(g, p)
     hierarchical_phase(g, p)
     g.prune(p.prune_length)
     g.find_bubble_chains()
     g.find_phasing_regions()
     g.store_gfa_sequence()
-    _debug_dump_phasing(g)
     transitions, transversions, non_snp = g.het_snp_statistics()
     diploid = sum(1 for e in g.edges.values() if e.ploidy == 2)
     phased = sum(

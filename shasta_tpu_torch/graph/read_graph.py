@@ -340,79 +340,12 @@ def flag_chimeric_reads(
 
     Returns is_chimeric: bool [n_reads].
     """
-    is_chimeric = np.zeros(n_reads, dtype=bool)
     if max_distance == 0:
-        return is_chimeric
+        return np.zeros(n_reads, dtype=bool)
 
     from shasta_tpu_torch import native
 
-    native_result = native.flag_chimeric_native(graph, n_reads, max_distance)
-    if native_result is not None:
-        return native_result
-
-    adj_off = graph.adj_offsets
-    adj_e = graph.adj_edges
-    orid0 = graph.orid0
-    orid1 = graph.orid1
-    crosses = graph.crosses_strands
-
-    n_or = graph.n_oriented_reads
-    local_id = np.full(n_or, -1, dtype=np.int64)
-
-    for read_id in range(n_reads):
-        start = 2 * read_id
-        # BFS.
-        verts = [start]
-        dists = [0]
-        local_id[start] = 0
-        frontier = [start]
-        d = 0
-        while frontier and d < max_distance:
-            d += 1
-            nxt = []
-            for v0 in frontier:
-                for ei in adj_e[adj_off[v0] : adj_off[v0 + 1]]:
-                    if crosses[ei]:
-                        continue
-                    v1 = orid1[ei] if orid0[ei] == v0 else orid0[ei]
-                    if local_id[v1] >= 0:
-                        continue
-                    local_id[v1] = len(verts)
-                    verts.append(int(v1))
-                    dists.append(d)
-                    nxt.append(int(v1))
-            frontier = nxt
-
-        # Union over edges among local vertices avoiding the start read.
-        dsu = _DSU(len(verts))
-        for u_local, v0 in enumerate(verts):
-            if v0 >> 1 == read_id:
-                continue
-            for ei in adj_e[adj_off[v0] : adj_off[v0 + 1]]:
-                if crosses[ei]:
-                    continue
-                v1 = orid1[ei] if orid0[ei] == v0 else orid0[ei]
-                if v1 >> 1 == read_id:
-                    continue
-                if local_id[v1] >= 0:
-                    dsu.union(u_local, int(local_id[v1]))
-
-        # Check the max-distance frontier.
-        component = -1
-        for u_local, v0 in enumerate(verts):
-            if dists[u_local] != max_distance or (v0 >> 1) == read_id:
-                continue
-            c = dsu.find(u_local)
-            if component == -1:
-                component = c
-            elif c != component:
-                is_chimeric[read_id] = True
-                break
-
-        for v0 in verts:
-            local_id[v0] = -1
-
-    return is_chimeric
+    return native.flag_chimeric_native(graph, n_reads, max_distance)
 
 
 def flag_cross_strand_edges2(
@@ -431,7 +364,6 @@ def flag_cross_strand_edges2(
 
     Sets graph.crosses_strands in place; returns the flagged count.
     """
-    n_or = graph.n_oriented_reads
     pairs = np.arange(0, graph.edge_count, 2, dtype=np.int64)
     aids = graph.alignment_id[pairs]
     mc = alignments.marker_count[aids]
@@ -449,41 +381,7 @@ def flag_cross_strand_edges2(
     # vectorized part; the sweep itself is inherently sequential).
     from shasta_tpu_torch import native
 
-    flagged = native.cross_strand_edges2_native(graph, ordered)
-    if flagged is not None:
-        return flagged
-
-    parent = list(range(n_or))
-
-    def find(x: int) -> int:
-        while parent[x] != x:
-            parent[x] = parent[parent[x]]
-            x = parent[x]
-        return x
-
-    def union(a: int, b: int) -> None:
-        ra, rb = find(a), find(b)
-        if ra != rb:
-            parent[max(ra, rb)] = min(ra, rb)
-
-    flagged = 0
-    for e in ordered:
-        A0, B0 = int(graph.orid0[e]), int(graph.orid1[e])
-        A1, B1 = int(graph.orid0[e + 1]), int(graph.orid1[e + 1])
-        if (A1 >> 1) != (A0 >> 1):  # normalization may have swapped
-            A1, B1 = B1, A1
-        a0, b0 = find(A0), find(B0)
-        a1, b1 = find(A1), find(B1)
-        if a0 == b0:
-            continue
-        if a0 == b1:
-            graph.crosses_strands[e] = True
-            graph.crosses_strands[e + 1] = True
-            flagged += 2
-            continue
-        union(a0, b0)
-        union(a1, b1)
-    return flagged
+    return native.cross_strand_edges2_native(graph, ordered)
 
 
 def connected_components_excluding_cross(graph: ReadGraph) -> np.ndarray:
@@ -531,29 +429,6 @@ def connected_components(graph: ReadGraph) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 
-def _shortest_path_exists(graph: ReadGraph, start: int, goal: int, max_distance: int) -> bool:
-    """BFS: is there a path of <= max_distance edges from start to goal?
-    (reference: ReadGraph::computeShortPath, src/ReadGraph.cpp)."""
-    adj_off, adj_e = graph.adj_offsets, graph.adj_edges
-    orid0, orid1 = graph.orid0, graph.orid1
-    seen = {start}
-    frontier = [start]
-    for _ in range(max_distance):
-        nxt = []
-        for v0 in frontier:
-            for ei in adj_e[adj_off[v0] : adj_off[v0 + 1]]:
-                v1 = int(orid1[ei]) if orid0[ei] == v0 else int(orid0[ei])
-                if v1 == goal:
-                    return True
-                if v1 not in seen:
-                    seen.add(v1)
-                    nxt.append(v1)
-        frontier = nxt
-        if not frontier:
-            break
-    return False
-
-
 def flag_cross_strand_edges1(
     graph: ReadGraph,
     alignments: AlignmentStore,
@@ -583,12 +458,6 @@ def flag_cross_strand_edges1(
     from shasta_tpu_torch import native
 
     near = native.near_strand_jump_native(graph, n_reads, max_distance)
-    if near is None:
-        near = np.zeros(n_or, dtype=bool)
-        for read_id in range(n_reads):
-            v0, v1 = 2 * read_id, 2 * read_id + 1
-            if _shortest_path_exists(graph, v0, v1, max_distance):
-                near[v0] = near[v1] = True
 
     if not near.any():
         return 0

@@ -4,8 +4,8 @@ The reference loads reads with a multithreaded C++ parser
 (reference: src/ReadLoader.cpp) that discards reads shorter than
 minReadLength, reads with invalid bases, and reads containing a base
 run longer than 255 (so repeat counts fit a uint8). This module
-reproduces those semantics with a vectorized numpy parser; a native
-C++ fast path (csrc/) can be slotted in behind the same interface.
+parses FASTA with the native library (native/shasta_native.cpp
+fasta_measure, fasta_fill) and FASTQ in Python.
 """
 
 from __future__ import annotations
@@ -31,7 +31,7 @@ class ParsedReads:
     offsets: np.ndarray
     # Per-read metadata (remainder of the header line).
     metadata: List[str] = field(default_factory=list)
-    # Pre-encoded 2-bit codes (native parser path); when set,
+    # Pre-encoded 2-bit codes (the FASTA parser's); when set,
     # seq_ascii may be empty.
     codes: np.ndarray = None
 
@@ -46,39 +46,6 @@ def _open_maybe_gzip(path: str) -> bytes:
             return f.read()
     with open(path, "rb") as f:
         return f.read()
-
-
-def _parse_fasta(data: bytes) -> ParsedReads:
-    names: List[str] = []
-    metadata: List[str] = []
-    chunks: List[bytes] = []
-    lengths: List[int] = []
-    cur: List[bytes] = []
-    cur_len = 0
-    started = False
-    for line in data.splitlines():
-        if line.startswith(b">"):
-            if started:
-                lengths.append(cur_len)
-                chunks.extend(cur)
-            header = line[1:].strip().decode(errors="replace")
-            name, _, meta = header.partition(" ")
-            names.append(name)
-            metadata.append(meta)
-            cur = []
-            cur_len = 0
-            started = True
-        elif started and line:
-            s = line.strip()
-            cur.append(s)
-            cur_len += len(s)
-    if started:
-        lengths.append(cur_len)
-        chunks.extend(cur)
-    flat = np.frombuffer(b"".join(chunks), dtype=np.uint8)
-    offsets = np.zeros(len(names) + 1, dtype=np.int64)
-    np.cumsum(lengths, out=offsets[1:])
-    return ParsedReads(names=names, seq_ascii=flat, offsets=offsets, metadata=metadata)
 
 
 def _parse_fastq(data: bytes) -> ParsedReads:
@@ -113,7 +80,21 @@ def _parse_fastq(data: bytes) -> ParsedReads:
 
 
 def parse_fasta_bytes(data: bytes) -> ParsedReads:
-    return _parse_fasta(data)
+    """Parse FASTA bytes with the native parser (reference: the
+    multithreaded C++ ReadLoader, src/ReadLoader.cpp). Lines before the
+    first header are ignored; codes are 255 at invalid bases."""
+    from shasta_tpu_torch import native
+
+    if not data.startswith(b">"):
+        data = data[data.find(b"\n>") + 1 :] if b"\n>" in data else b""
+    codes, offsets, names, metadata = native.parse_fasta_native(data)
+    return ParsedReads(
+        names=names,
+        seq_ascii=np.zeros(0, np.uint8),
+        offsets=offsets,
+        metadata=metadata,
+        codes=codes,
+    )
 
 
 def merge_parsed(parts: List[ParsedReads]) -> ParsedReads:
@@ -164,27 +145,12 @@ def merge_parsed(parts: List[ParsedReads]) -> ParsedReads:
 
 def parse_file(path: str) -> ParsedReads:
     data = _open_maybe_gzip(path)
-    # FASTA goes through the native C++ parser when available
-    # (reference: the multithreaded C++ ReadLoader, src/ReadLoader.cpp).
-    stripped = data.lstrip()
-    if stripped.startswith(b">"):
-        from shasta_tpu_torch import native
-
-        res = native.parse_fasta_native(data)
-        if res is not None:
-            codes, offsets, names, metadata = res
-            return ParsedReads(
-                names=names,
-                seq_ascii=np.zeros(0, np.uint8),
-                offsets=offsets,
-                metadata=metadata,
-                codes=codes,
-            )
     stem = path[:-3] if path.endswith(".gz") else path
     ext = os.path.splitext(stem)[1].lower()
-    if ext in (".fastq", ".fq"):
-        return _parse_fastq(data)
-    # Default to FASTA; sniff '@' for fastq content with odd extension.
-    if data[:1] == b"@" and ext not in (".fasta", ".fa", ".fna"):
-        return _parse_fastq(data)
-    return _parse_fasta(data)
+    if not data.lstrip().startswith(b">"):
+        if ext in (".fastq", ".fq"):
+            return _parse_fastq(data)
+        # Sniff '@' for fastq content with an odd extension.
+        if data[:1] == b"@" and ext not in (".fasta", ".fa", ".fna"):
+            return _parse_fastq(data)
+    return parse_fasta_bytes(data)

@@ -2,11 +2,11 @@
 
 Compiles the repository's native/*.cpp on first use (g++ -O3 -shared)
 into the port's own build directory (shasta_tpu_torch/build/native), so
-it never shares an output file with another package's build; every
-entry point has a pure-Python fallback, so the package works without a
-toolchain.
-Semantics of the native paths match the Python implementations exactly
-(tests assert equality).
+it never shares an output file with another package's build. The host
+stages call these entry points directly: the library is required, as
+nvcc is for the card, and a failed build raises with the compiler's
+output. Each entry point matches the JAX package's numpy path bit for
+bit (tests/test_torch_native.py).
 """
 
 from __future__ import annotations
@@ -32,7 +32,6 @@ _SO = os.path.join(
 
 _lib = None
 _lock = threading.Lock()
-_build_failed = False
 
 
 def _i64p(a: np.ndarray):
@@ -47,50 +46,43 @@ def _i32p(a: np.ndarray):
     return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int32))
 
 
-def get_lib() -> Optional[ctypes.CDLL]:
-    """Load (building if needed) the native library, or None."""
-    global _lib, _build_failed
+def get_lib() -> ctypes.CDLL:
+    """Load the native library, building it first if it is missing or
+    older than its sources; raises RuntimeError if the build fails."""
+    global _lib
     if _lib is not None:
         return _lib
-    if _build_failed or os.environ.get("SHASTA_TORCH_NO_NATIVE") == "1":
-        return None
     with _lock:
         if _lib is not None:
             return _lib
-        try:
-            if not os.path.exists(_SO) or os.path.getmtime(_SO) < max(
-                os.path.getmtime(f) for f in _SRCS
-            ):
-                os.makedirs(os.path.dirname(_SO), exist_ok=True)
-                # Build under a per-process name and rename into place:
-                # concurrent test workers never load a half-written file.
-                tmp = f"{_SO}.{os.getpid()}.tmp"
-                subprocess.run(
-                    ["g++", "-O3", "-march=native", "-shared", "-fPIC",
-                     "-std=c++17", "-pthread", *_SRCS, "-o", tmp],
-                    check=True,
-                    capture_output=True,
-                )
-                os.replace(tmp, _SO)
-            _lib = ctypes.CDLL(_SO)
-        except (OSError, subprocess.CalledProcessError):
-            _build_failed = True
-            return None
+        if not os.path.exists(_SO) or os.path.getmtime(_SO) < max(
+            os.path.getmtime(f) for f in _SRCS
+        ):
+            os.makedirs(os.path.dirname(_SO), exist_ok=True)
+            # Build under a per-process name and rename into place:
+            # concurrent test workers never load a half-written file.
+            tmp = f"{_SO}.{os.getpid()}.tmp"
+            cmd = ["g++", "-O3", "-march=native", "-shared", "-fPIC",
+                   "-std=c++17", "-pthread", *_SRCS, "-o", tmp]
+            try:
+                subprocess.run(cmd, check=True, capture_output=True, text=True)
+            except OSError as e:
+                raise RuntimeError(
+                    f"cannot run g++ to build the native library ({e})"
+                ) from e
+            except subprocess.CalledProcessError as e:
+                raise RuntimeError(
+                    f"building the native library failed:\n{e.stderr}"
+                ) from e
+            os.replace(tmp, _SO)
+        _lib = ctypes.CDLL(_SO)
     return _lib
-
-
-def available() -> bool:
-    return get_lib() is not None
 
 
 def find_markers_native(flat, offsets, k: int, is_marker):
     """Fused threaded marker scan (count + fill); returns
-    (moff, kmer_ids, positions) or None when unavailable."""
-    import numpy as np
-
+    (moff, kmer_ids, positions)."""
     lib = get_lib()
-    if lib is None:
-        return None
     flat = np.ascontiguousarray(flat, np.uint8)
     offsets = np.ascontiguousarray(offsets, np.int64)
     table = np.ascontiguousarray(is_marker, np.uint8)
@@ -122,12 +114,8 @@ def palindrome_keys_native(
     max_bucket: int, kh_bits: int, sh_b: int, sh_r: int, n_pos0: int,
 ):
     """One-pass threaded key builder for the palindrome pre-filter;
-    returns the unsorted 4*n_pos0 uint64 key array or None."""
-    import numpy as np
-
+    returns the unsorted 4*n_pos0 uint64 key array."""
     lib = get_lib()
-    if lib is None:
-        return None
     kmer_ids = np.ascontiguousarray(kmer_ids, np.uint32)
     koff = np.ascontiguousarray(koff, np.int64)
     cum0 = np.ascontiguousarray(cum0, np.int64)
@@ -145,12 +133,10 @@ def palindrome_keys_native(
 def expand_unite_pairs_native(
     moff, counts, orid0, orid1, lo, hi, ord0_flat, ord1_flat
 ):
-    """Threaded unite-pair expansion; returns (u, v) or None."""
-    import numpy as np
-
+    """Threaded unite-pair expansion; returns (u, v). The pair order
+    (each pair beside its reverse complement) is free: every consumer
+    is order-independent."""
     lib = get_lib()
-    if lib is None:
-        return None
     moff = np.ascontiguousarray(moff, np.int64)
     counts = np.ascontiguousarray(counts, np.int64)
     orid0 = np.ascontiguousarray(orid0, np.int64)
@@ -183,12 +169,8 @@ def unite_from_alignments_native(
     """Streaming unite of every selected alignment's marker pairs (and
     their reverse complements) straight into the sequential min-root
     DSU — never materializes the pair arrays, the run's largest
-    transient at scale. Returns min-id component labels or None."""
-    import numpy as np
-
+    transient at scale. Returns min-id component labels."""
     lib = get_lib()
-    if lib is None:
-        return None
     moff = np.ascontiguousarray(moff, np.int64)
     counts = np.ascontiguousarray(counts, np.int64)
     orid0 = np.ascontiguousarray(orid0, np.int64)
@@ -214,13 +196,8 @@ def unite_from_alignments_native(
 
 
 def union_find_min_labels_native(n: int, u, v):
-    """Sequential min-root DSU; returns min-id component labels or
-    None when the native library is unavailable."""
-    import numpy as np
-
+    """Sequential min-root DSU; returns min-id component labels."""
     lib = get_lib()
-    if lib is None:
-        return None
     u = np.ascontiguousarray(u, np.int64)
     v = np.ascontiguousarray(v, np.int64)
     label = np.arange(n, dtype=np.int64)
@@ -233,12 +210,8 @@ def union_find_min_labels_native(n: int, u, v):
 
 def palindrome_scan_native(keys_sorted, sh_r: int, n_reads: int):
     """Fused group scan over the sorted palindrome keys; returns the
-    per-read common-count array or None."""
-    import numpy as np
-
+    per-read common-count array."""
     lib = get_lib()
-    if lib is None:
-        return None
     keys_sorted = np.ascontiguousarray(keys_sorted, np.uint64)
     common = np.zeros(n_reads, np.int64)
     lib.palindrome_scan(
@@ -251,13 +224,8 @@ def palindrome_scan_native(keys_sorted, sh_r: int, n_reads: int):
 
 
 def murmur64_features_native(features, seed: int):
-    """Threaded one-pass MurmurHash64A over (n, m) uint32 rows, or
-    None when the native library is unavailable."""
-    import numpy as np
-
+    """Threaded one-pass MurmurHash64A over (n, m) uint32 rows."""
     lib = get_lib()
-    if lib is None:
-        return None
     feats = np.ascontiguousarray(features, dtype=np.uint32)
     n, m = feats.shape
     out = np.empty(n, np.uint64)
@@ -277,11 +245,10 @@ def murmur64_features_native(features, seed: int):
 
 
 def parse_fasta_native(data: bytes):
-    """Parse FASTA bytes -> (codes uint8, offsets int64, names, metadata)
-    or None if the native library is unavailable."""
+    """Parse FASTA bytes -> (codes uint8, offsets int64, names, metadata).
+    The data must start with a header line; codes are 255 at invalid
+    bases."""
     lib = get_lib()
-    if lib is None:
-        return None
     n = len(data)
     n_seqs = ctypes.c_int64()
     n_bases = ctypes.c_int64()
@@ -308,35 +275,10 @@ def parse_fasta_native(data: bytes):
 # ---------------------------------------------------------------------------
 
 
-def rle_encode_native(codes: np.ndarray, offsets: np.ndarray):
-    lib = get_lib()
-    if lib is None:
-        return None
-    codes = np.ascontiguousarray(codes, np.uint8)
-    offsets = np.ascontiguousarray(offsets, np.int64)
-    ns = offsets.shape[0] - 1
-    per_seq = np.empty(ns, np.int64)
-    lib.rle_measure(
-        _u8p(codes), _i64p(offsets), ctypes.c_int64(ns), _i64p(per_seq)
-    )
-    rle_offsets = np.zeros(ns + 1, np.int64)
-    np.cumsum(per_seq, out=rle_offsets[1:])
-    total = int(rle_offsets[-1])
-    rle = np.empty(total, np.uint8)
-    counts = np.empty(total, np.int64)
-    lib.rle_fill(
-        _u8p(codes), _i64p(offsets), ctypes.c_int64(ns),
-        _u8p(rle), _i64p(counts), _i64p(rle_offsets),
-    )
-    return rle, counts, rle_offsets
-
-
 def rle_encode_store_native(codes: np.ndarray, offsets: np.ndarray):
     """Read-store RLE encode: uint8 clipped counts + per-sequence
     long-run flags in one native pass (no wide count arrays)."""
     lib = get_lib()
-    if lib is None:
-        return None
     codes = np.ascontiguousarray(codes, np.uint8)
     offsets = np.ascontiguousarray(offsets, np.int64)
     ns = offsets.shape[0] - 1
@@ -363,11 +305,8 @@ def rle_encode_store_native(codes: np.ndarray, offsets: np.ndarray):
 
 
 def transitive_reduction_bfs_native(mg, candidates: np.ndarray, max_distance: int) -> bool:
-    """Run the BFS phase natively over mg.removed_tr (in place).
-    Returns False if unavailable (caller falls back)."""
+    """Run the BFS phase natively over mg.removed_tr (in place)."""
     lib = get_lib()
-    if lib is None:
-        return False
     removed = mg.removed_tr.astype(np.uint8)
     src = np.ascontiguousarray(mg.source, np.int64)
     tgt = np.ascontiguousarray(mg.target, np.int64)
@@ -383,7 +322,6 @@ def transitive_reduction_bfs_native(mg, candidates: np.ndarray, max_distance: in
         ctypes.c_int64(max_distance), _u8p(removed),
     )
     mg.removed_tr[:] = removed.astype(bool)
-    return True
 
 
 # ---------------------------------------------------------------------------
@@ -392,10 +330,8 @@ def transitive_reduction_bfs_native(mg, candidates: np.ndarray, max_distance: in
 
 
 def flag_chimeric_native(graph, n_reads: int, max_distance: int):
-    """Returns is_chimeric bool array or None if unavailable."""
+    """Returns is_chimeric bool array."""
     lib = get_lib()
-    if lib is None:
-        return None
     out = np.zeros(n_reads, np.uint8)
     orid0 = np.ascontiguousarray(graph.orid0, np.int64)
     orid1 = np.ascontiguousarray(graph.orid1, np.int64)
@@ -416,12 +352,9 @@ def poa_msa_native(seqs):
     """Partial-order-alignment MSA (spoa equivalent, native/poa.cpp).
 
     seqs: list of uint8 arrays (base codes). Returns a list of aligned
-    uint8 rows with 255 at gap positions, or None if the native
-    library is unavailable.
+    uint8 rows with 255 at gap positions.
     """
     lib = get_lib()
-    if lib is None:
-        return None
     n = len(seqs)
     if n == 0:
         return []
@@ -446,7 +379,7 @@ def poa_msa_native(seqs):
             ctypes.c_int64(max_cols),
         )
         if ncols < 0:
-            return None
+            raise RuntimeError("poa_msa failed")
         if ncols <= max_cols:
             break
         max_cols = int(ncols)
@@ -473,8 +406,7 @@ def edge_consensus_batch_native(
 
     Returns (seq uint8, rep int32, out_len int64 [n_edges]) with
     seq/rep COMPACTED (edge e's consensus is the out_len[e]-long slice
-    at cumsum position), or None if the library is unavailable / an
-    edge overflowed its bound.
+    at cumsum position). Raises if an edge overflowed its bound.
 
     Edges are processed in chunks so the bound-sized output buffer
     (each edge's bound = its TOTAL fill length ~= coverage x the
@@ -482,8 +414,6 @@ def edge_consensus_batch_native(
     was ~10 GB of the assembleMarkerGraphEdges 27.8 GB RSS peak at
     SCALE=50 (memprof r4)."""
     lib = get_lib()
-    if lib is None:
-        return None
     fill_b = np.ascontiguousarray(fill_b, np.uint8)
     fill_r = np.ascontiguousarray(fill_r, np.uint8)
     fill_off = np.ascontiguousarray(fill_off, np.int64)
@@ -531,7 +461,7 @@ def edge_consensus_batch_native(
             _i64p(out_off), _i64p(out_len),
         )
         if rc != 0:
-            return None
+            raise RuntimeError("edge_consensus_batch: an edge overflowed its bound")
         # Compact this chunk: gather each edge's real consensus run.
         n_cols = int(out_len.sum())
         src = np.repeat(out_off[:-1], out_len) + (
@@ -553,10 +483,8 @@ def edge_consensus_batch_native(
 
 def near_strand_jump_native(graph, n_reads: int, max_distance: int):
     """Per-oriented-read near-strand-jump flags (strand separation
-    method 1 phase 1), or None if the native library is unavailable."""
+    method 1 phase 1)."""
     lib = get_lib()
-    if lib is None:
-        return None
     out = np.zeros(2 * n_reads, np.uint8)
     lib.near_strand_jump(
         ctypes.c_int64(n_reads),
@@ -573,11 +501,9 @@ def near_strand_jump_native(graph, n_reads: int, max_distance: int):
 def cross_strand_edges2_native(graph, pairs_in_order: np.ndarray):
     """Strand separation method 2's sequential DSU sweep (reference:
     flagCrossStrandReadGraphEdges2, src/AssemblerReadGraph.cpp:1051),
-    or None if the native library is unavailable. Sets
+    Sets
     graph.crosses_strands in place and returns the flagged count."""
     lib = get_lib()
-    if lib is None:
-        return None
     crosses = np.ascontiguousarray(graph.crosses_strands, np.uint8)
     n_flagged = np.zeros(1, np.int64)
     lib.cross_strand_edges2(
@@ -595,12 +521,8 @@ def cross_strand_edges2_native(graph, pairs_in_order: np.ndarray):
 def strict_interval_hashes_native(rle_bases, read_offsets, orid, pos0, pos1, k: int):
     """Dual 64-bit polynomial content hashes of strict-edge intervals,
     threaded, straight from the read store (no flat expansion).
-    Returns (h1, h2) uint64 arrays or None when unavailable."""
-    import numpy as np
-
+    Returns (h1, h2) uint64 arrays."""
     lib = get_lib()
-    if lib is None:
-        return None
     rle = np.ascontiguousarray(rle_bases, np.uint8)
     ro = np.ascontiguousarray(read_offsets, np.int64)
     o = np.ascontiguousarray(orid, np.int64)
@@ -621,13 +543,8 @@ def strict_interval_hashes_native(rle_bases, read_offsets, orid, pos0, pos1, k: 
 def counting_sort_by_key_native(key, starts):
     """Stable grouping order for a dense int64 key (one linear native
     pass; the numpy equivalent is a full argsort). ``starts`` are the
-    exclusive prefix sums of the per-key counts. Returns order int64
-    or None."""
-    import numpy as np
-
+    exclusive prefix sums of the per-key counts. Returns order int64."""
     lib = get_lib()
-    if lib is None:
-        return None
     key = np.ascontiguousarray(key, np.int64)
     next_pos = np.ascontiguousarray(starts, np.int64).copy()
     order = np.empty(key.shape[0], np.int64)
@@ -644,12 +561,8 @@ def counting_sort_by_key32_native(key, starts, n_out=None):
     for grouping 10^8 markers, and the skip rule builds filtered CSRs
     (e.g. vertex -> kept markers from vertex_table with INVALID = -1)
     in one pass without a flatnonzero index vector. Returns order
-    int32 (length n_out, default = key length) or None."""
-    import numpy as np
-
+    int32 (length n_out, default = key length)."""
     lib = get_lib()
-    if lib is None:
-        return None
     key = np.ascontiguousarray(key, np.int32)
     next_pos = np.ascontiguousarray(starts, np.int64).copy()
     order = np.empty(

@@ -3,61 +3,27 @@
 The reference hashes LowHash features with MurmurHash64A and k-mer ids
 with 32-bit MurmurHash2 (reference: src/MurmurHash2.cpp, used at
 src/LowHash0.cpp:349 and src/AssemblerKmers.cpp:185). Both are
-public-domain algorithms (Austin Appleby); we provide exact vectorized
-numpy reimplementations so candidate generation and marker
-downsampling match the reference bit-for-bit, plus a fast 32-bit
-mix-based hash for on-device (JAX) use where uint64 is unavailable.
+public-domain algorithms (Austin Appleby); MurmurHash64A runs in the
+native library and MurmurHash2 is an exact vectorized numpy
+reimplementation, so candidate generation and marker downsampling
+match the reference bit for bit; splitmix32 is a fast 32-bit mix.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-_M64 = np.uint64(0xC6A4A7935BD1E995)
-_R64 = np.uint64(47)
-
 
 def murmur64_features(features: np.ndarray, seed: int) -> np.ndarray:
     """MurmurHash64A over rows of little-endian uint32 words.
 
     ``features``: (n, m) uint32 — each row is one key of m*4 bytes.
-    Returns (n,) uint64 hashes, identical to MurmurHash64A(key, 4*m, seed).
+    Returns (n,) uint64 hashes, identical to MurmurHash64A(key, 4*m, seed)
+    (one threaded native pass).
     """
-    features = np.ascontiguousarray(features, dtype=np.uint32)
-    n, m = features.shape
-    if n >= 1 << 15:
-        # The native one-pass threaded implementation (bit-identical;
-        # tests assert equality) — the numpy chain below makes ~12
-        # full-array passes and dominates LowHash wall time.
-        from shasta_tpu_torch import native
+    from shasta_tpu_torch import native
 
-        out = native.murmur64_features_native(features, seed)
-        if out is not None:
-            return out
-    length = np.uint64(4 * m)
-    with np.errstate(over="ignore"):
-        h = np.full(n, np.uint64(seed) ^ (length * _M64), dtype=np.uint64)
-
-    # Full 8-byte chunks: pairs of uint32 words (little endian).
-    with np.errstate(over="ignore"):
-        for i in range(0, m - 1, 2):
-            k = features[:, i].astype(np.uint64) | (
-                features[:, i + 1].astype(np.uint64) << np.uint64(32)
-            )
-            k *= _M64
-            k ^= k >> _R64
-            k *= _M64
-            h ^= k
-            h *= _M64
-        # 4-byte tail (m odd): bytes are xor'ed into h, then h *= m.
-        if m % 2 == 1:
-            tail = features[:, m - 1].astype(np.uint64)
-            h ^= tail
-            h *= _M64
-        h ^= h >> _R64
-        h *= _M64
-        h ^= h >> _R64
-    return h
+    return native.murmur64_features_native(features, seed)
 
 
 _M32 = np.uint32(0x5BD1E995)

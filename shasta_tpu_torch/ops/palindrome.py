@@ -24,45 +24,6 @@ from shasta_tpu_torch.data.markers import MarkerStore
 from shasta_tpu_torch.ops.align import AlignParams, _CsrStreamingRunner
 
 
-def _prefilter_keys_numpy(
-    markers, koff, counts0, n_reads, n_or, n_pos0, d, max_bucket,
-    KH_BITS, bucket_bits,
-):
-    """Vectorized numpy fallback of the native palindrome_keys pass
-    (same key layout; output order differs but is sorted by the
-    caller)."""
-    from shasta_tpu_torch.data.kmers import reverse_complement_kmers
-
-    read_of0 = np.repeat(np.arange(n_reads, dtype=np.uint64), counts0)
-    cum0 = np.concatenate(([0], np.cumsum(counts0)))[:-1]
-    iota = np.arange(n_pos0, dtype=np.int64)
-    pos0 = np.repeat(koff[0:n_or:2] - cum0, counts0) + iota
-    ord0 = iota - np.repeat(cum0, counts0)  # ordinal i within read
-    k0 = markers.kmer_ids[pos0].astype(np.uint64)
-    rc0 = reverse_complement_kmers(k0.astype(np.uint32), markers.k).astype(
-        np.uint64
-    )
-    # Multiplicative k-mer hashes (hash collisions only inflate the
-    # upper bound, never deflate it).
-    MUL = np.uint64(0x9E3779B97F4A7C15)
-    kh = ((k0 * MUL) >> np.uint64(64 - KH_BITS)).astype(np.uint64)
-    rh = ((rc0 * MUL) >> np.uint64(64 - KH_BITS)).astype(np.uint64)
-    # Key layout: [read | bucket | kmer-hash | side-bit].
-    SH_K = np.uint64(1)
-    SH_B = np.uint64(1 + KH_BITS)
-    SH_R = np.uint64(1 + KH_BITS + bucket_bits)
-    base_a = (read_of0 << SH_R) | (kh << SH_K)
-    b_a = (ord0.astype(np.uint64) // np.uint64(d)) << SH_B
-    n_of = np.repeat(counts0, counts0).astype(np.int64)
-    j_rc = (n_of - 1 - ord0) // d
-    base_b = (read_of0 << SH_R) | (rh << SH_K) | np.uint64(1)
-    parts = [base_a | b_a]
-    for off in (-1, 0, 1):
-        bb = np.clip(j_rc + off, 0, max_bucket - 1).astype(np.uint64)
-        parts.append(base_b | (bb << SH_B))
-    return np.concatenate(parts)
-
-
 def flag_palindromic_reads(
     markers: MarkerStore,
     aligned_fraction_threshold: float = 0.1,
@@ -104,39 +65,18 @@ def flag_palindromic_reads(
     KH_BITS = 22  # k-mer hash width; collisions only loosen the bound
     read_bits = 63 - KH_BITS - bucket_bits
     if n_pos0 and n_reads < (1 << read_bits):
-        SH_B = np.uint64(1 + KH_BITS)
-        SH_R = np.uint64(1 + KH_BITS + bucket_bits)
+        SH_B = 1 + KH_BITS
+        SH_R = 1 + KH_BITS + bucket_bits
         from shasta_tpu_torch import native
 
         cum0_full = np.zeros(n_reads + 1, np.int64)
         np.cumsum(counts0, out=cum0_full[1:])
         both = native.palindrome_keys_native(
             markers.kmer_ids, koff, cum0_full, n_reads, markers.k, d,
-            max_bucket, KH_BITS, int(SH_B), int(SH_R), n_pos0,
+            max_bucket, KH_BITS, SH_B, SH_R, n_pos0,
         )
-        if both is None:
-            both = _prefilter_keys_numpy(
-                markers, koff, counts0, n_reads, n_or, n_pos0, d,
-                max_bucket, KH_BITS, bucket_bits,
-            )
         both.sort()
-        common = native.palindrome_scan_native(both, int(SH_R), n_reads)
-        if common is None:
-            vals = both >> np.uint64(1)
-            bits = both & np.uint64(1)
-            new_grp = np.empty(vals.shape[0], bool)
-            new_grp[0] = True
-            new_grp[1:] = vals[1:] != vals[:-1]
-            bounds = np.flatnonzero(new_grp)
-            tot_per = np.empty(bounds.shape[0], np.int64)
-            tot_per[:-1] = np.diff(bounds)
-            tot_per[-1] = vals.shape[0] - bounds[-1]
-            n_b = np.add.reduceat(bits, bounds).astype(np.int64)
-            n_a = tot_per - n_b
-            g_read = (vals[bounds] >> (SH_R - np.uint64(1))).astype(np.int64)
-            common = np.bincount(
-                g_read, weights=np.minimum(n_a, n_b), minlength=n_reads
-            ).astype(np.int64)
+        common = native.palindrome_scan_native(both, SH_R, n_reads)
         frac_cap = np.where(counts0 > 0, common / np.maximum(counts0, 1), 0.0)
         candidates = np.flatnonzero(
             frac_cap >= near_diagonal_fraction_threshold

@@ -660,7 +660,7 @@ class Assembler:
                     self.markers, self.read_graph, self.alignments,
                     self.reads.is_chimeric,
                 )
-            if labels is None:
+            else:
                 u, v = MG.gather_unite_pairs(
                     self.markers, self.read_graph, self.alignments,
                     self.reads.is_chimeric,

@@ -150,12 +150,12 @@ def test_main_path_summary_equals_reference(main_path_runs):
     assert "assemblyGraph2" in port["stageSeconds"]
 
 
-@pytest.mark.parametrize("route", ["native", "numpy"])
+@pytest.mark.parametrize("route", ["native"])
 def test_strict_edges_both_routes_equal_reference(golden_run, route, monkeypatch):
     """create_marker_graph_edges_strict on the golden run's reads,
-    markers and vertices (69,810 intervals, above the native route's
-    65,536) equals the JAX function, through the native interval hashes
-    and counting sort and through the numpy passes."""
+    markers and vertices (69,810 intervals) equals the JAX function,
+    through the native interval hashes and counting sort (the one
+    route; the id keeps its route name)."""
     run_dir, _summary = golden_run
     store = RunStore(run_dir, create=False)
     reads_a = store.load_stage("Reads")
@@ -165,25 +165,19 @@ def test_strict_edges_both_routes_equal_reference(golden_run, route, monkeypatch
         if k in ("vertex_table", "vertex_offsets", "vertex_markers", "rc_vertex")
     }
     calls = []
-    if route == "native":
-        assert native.available()
-        hashes = native.strict_interval_hashes_native
+    hashes = native.strict_interval_hashes_native
 
-        def counted(*args, **kwargs):
-            out = hashes(*args, **kwargs)
-            calls.append(out is not None)
-            return out
+    def counted(*args, **kwargs):
+        calls.append(1)
+        return hashes(*args, **kwargs)
 
-        monkeypatch.setattr(native, "strict_interval_hashes_native", counted)
-    else:
-        monkeypatch.setattr(native, "strict_interval_hashes_native", lambda *a, **k: None)
-        monkeypatch.setattr(native, "available", lambda: False)
+    monkeypatch.setattr(native, "strict_interval_hashes_native", counted)
     port_mg = MG.MarkerGraph(**{k: v.copy() for k, v in vertices.items()})
     M2.create_marker_graph_edges_strict(
         ReadStore.from_arrays(reads_a), MarkerStore.from_arrays(markers_a), port_mg,
         min_edge_coverage=3, min_edge_coverage_per_strand=0,
     )
-    assert calls == ([True] if route == "native" else [])
+    assert calls == [1]
     ref_mg = ref_MG.MarkerGraph(**{k: v.copy() for k, v in vertices.items()})
     ref_M2.create_marker_graph_edges_strict(
         RefReadStore.from_arrays(reads_a), RefMarkerStore.from_arrays(markers_a), ref_mg,

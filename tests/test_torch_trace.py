@@ -12,6 +12,7 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from shasta_tpu_torch.data import kmers
 from shasta_tpu_torch.pipeline.assemble import Assembler
 from shasta_tpu_torch.utils import synth
 from shasta_tpu_torch.utils.perf import PerformanceLog
@@ -52,6 +53,9 @@ def traced(tmp_path_factory):
     fasta = str(d / "reads.fasta")
     synth.write_fasta(fasta, synth.sample_reads(genome, 130, 3000, seed=4243, both_strands=True))
     asm = Assembler(str(d / "run"), port_small_config(), device="cpu")
+    # The table is cached per process: empty the cache so that it is
+    # built under the profiler whatever this worker ran before.
+    kmers._TABLES.clear()
     with cpu_profiler() as prof:
         run_six(asm, fasta)
         asm.compute_alignments()
@@ -87,13 +91,14 @@ def test_steps_in_order_and_fetches_inside_phase2_and_collect(traced):
 
 def test_every_stage_opens_its_span(traced):
     """Each stage opens ``stage:<name>`` once a call, and
-    ``stage_seconds`` still times every one (the steps' spans inside
-    computeAlignments and LowHash left out)."""
-    names = [n for _, _, n in traced["spans"]
-             if not n.startswith(("stage:align.", "stage:lowhash."))]
+    ``stage_seconds`` still times every one (step spans, named
+    ``stage:<stage>.<step>``, left out). The k-mer table's build opens
+    ``stage:kmers.table`` once."""
+    names = [n for _, _, n in traced["spans"] if "." not in n[len("stage:"):]]
     assert sorted(set(names)) == sorted(f"stage:{k}" for k in traced["stage_seconds"])
     assert len(names) == len(traced["stage_seconds"]) + 1 == 7
     assert all(v > 0 for v in traced["stage_seconds"].values())
+    assert len(named(traced["spans"], "stage:kmers.table")) == 1
 
 
 def test_stage_hashes_pinned_under_a_profiler(traced):
