@@ -23,10 +23,12 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from shasta_tpu_torch import native
 from shasta_tpu_torch.consensus import msa as MSA
 from shasta_tpu_torch.data.markers import MarkerStore
 from shasta_tpu_torch.data.reads import ReadStore
 from shasta_tpu_torch.graph.marker_graph import MarkerGraph
+from shasta_tpu_torch.utils.perf import span
 
 GAP = 4
 
@@ -647,107 +649,49 @@ class AssemblyGraph:
         return cls(**dict(a))
 
 
+# Condensations since the last reset (``run_assembly`` resets it when an
+# assembly begins, and its performance.log prints it) and the
+# marker-graph edges, dead ones included, that they read.
+COUNTS = {"condensations": 0, "edges": 0}
+
+
 def create_assembly_graph(mg: MarkerGraph) -> AssemblyGraph:
     """Condense maximal linear chains of alive marker-graph edges
     (reference: createAssemblyGraphEdges,
-    src/AssemblerAssemblyGraph.cpp:38-230). RC chains are appended
+    src/AssemblerAssemblyGraph.cpp:38-230) in native code
+    (``csrc/assembly_graph.cpp``). RC chains are appended
     immediately after their direct chain, like the reference."""
-    n_edges = mg.edge_count
-    alive = mg.alive()
-    n_v = mg.vertex_count
-
-    out_deg = np.bincount(mg.source[alive], minlength=n_v)
-    in_deg = np.bincount(mg.target[alive], minlength=n_v)
-
-    # Unique alive out-edge / in-edge per vertex (valid when degree==1).
-    only_out = np.full(n_v, -1, dtype=np.int64)
-    e_alive = np.flatnonzero(alive)
-    only_out[mg.source[e_alive]] = e_alive
-    only_in = np.full(n_v, -1, dtype=np.int64)
-    only_in[mg.target[e_alive]] = e_alive
-
-    def next_edge(e: int) -> int:
-        t = mg.target[e]
-        if out_deg[t] != 1 or in_deg[t] != 1:
-            return -1
-        return int(only_out[t])
-
-    def prev_edge(e: int) -> int:
-        s = mg.source[e]
-        if out_deg[s] != 1 or in_deg[s] != 1:
-            return -1
-        return int(only_in[s])
-
-    was_found = np.zeros(n_edges, dtype=bool)
-    chains: List[np.ndarray] = []
-    rc_of: List[int] = []
-    circular: List[bool] = []
-
-    for start in range(n_edges):
-        if not alive[start] or was_found[start]:
-            continue
-        nxt = []
-        e = start
-        is_circ = False
-        while True:
-            e = next_edge(e)
-            if e == -1:
-                break
-            if e == start:
-                is_circ = True
-                break
-            nxt.append(e)
-        prev = []
-        if not is_circ:
-            e = start
-            while True:
-                e = prev_edge(e)
-                if e == -1:
-                    break
-                prev.append(e)
-        chain = np.array(prev[::-1] + [start] + nxt, dtype=np.int64)
-        was_found[chain] = True
-
-        rc_chain = mg.rc_edge[chain][::-1].copy()
-        if is_circ:
-            self_comp = bool(np.isin(rc_chain[0], chain))
-        else:
-            self_comp = bool(np.array_equal(chain, rc_chain))
-
-        cid = len(chains)
-        chains.append(chain)
-        circular.append(is_circ)
-        if self_comp:
-            rc_of.append(cid)
-        else:
-            was_found[rc_chain] = True
-            chains.append(rc_chain)
-            circular.append(is_circ)
-            rc_of.append(cid + 1)
-            rc_of.append(cid)
-
-    n_a = len(chains)
-    chain_offsets = np.zeros(n_a + 1, dtype=np.int64)
-    for i, c in enumerate(chains):
-        chain_offsets[i + 1] = chain_offsets[i] + c.shape[0]
-    flat = (
-        np.concatenate(chains) if chains else np.zeros(0, np.int64)
-    )
-    source_v = np.array(
-        [mg.source[c[0]] for c in chains], dtype=np.int64
-    ) if chains else np.zeros(0, np.int64)
-    target_v = np.array(
-        [mg.target[c[-1]] for c in chains], dtype=np.int64
-    ) if chains else np.zeros(0, np.int64)
-
+    with span("stage:graphs.condense"):
+        offsets, chains, rc_edge, source_v, target_v, circular = (
+            native.condense_chains_native(
+                mg.source, mg.target, mg.rc_edge, mg.alive(), mg.vertex_count
+            )
+        )
+    COUNTS["condensations"] += 1
+    COUNTS["edges"] += mg.edge_count
     return AssemblyGraph(
-        chain_offsets=chain_offsets,
-        chains=flat,
-        rc_edge=np.array(rc_of, dtype=np.int64),
+        chain_offsets=offsets,
+        chains=chains,
+        rc_edge=rc_edge,
         source_v=source_v,
         target_v=target_v,
-        is_circular=np.array(circular, dtype=bool),
+        is_circular=circular,
     )
+
+
+def chain_mean_coverage(ag: AssemblyGraph, coverage: np.ndarray) -> np.ndarray:
+    """Each assembly edge's integer mean of ``coverage`` (the marker-graph
+    edges' coverage) over its chain, int64; 0 for an empty chain."""
+    lengths = np.diff(ag.chain_offsets)
+    full = lengths > 0
+    # reduceat over the non-empty chains' starts: each sum runs to the next
+    # start, which is its own chain's end.
+    sums = np.zeros(lengths.shape[0], np.int64)
+    if full.any():
+        sums[full] = np.add.reduceat(
+            coverage[ag.chains], ag.chain_offsets[:-1][full], dtype=np.int64
+        )
+    return sums // np.maximum(lengths, 1)
 
 
 def remove_low_coverage_cross_edges(
@@ -763,11 +707,7 @@ def remove_low_coverage_cross_edges(
     n_e = ag.edge_count
     if n_e == 0 or threshold <= 0:
         return 0
-    avg_cov = np.zeros(n_e, dtype=np.int64)
-    for e in range(n_e):
-        chain = ag.chain(e)
-        if chain.shape[0]:
-            avg_cov[e] = int(mg.coverage[chain].sum()) // chain.shape[0]
+    avg_cov = chain_mean_coverage(ag, mg.coverage)
 
     removed = np.zeros(n_e, dtype=bool)
 

@@ -202,12 +202,12 @@ class MarkerGraph:
 
     def alive(self) -> np.ndarray:
         """Edges surviving all removal flags."""
-        a = np.ones(self.edge_count, dtype=bool)
+        dead = np.zeros(self.edge_count, dtype=bool)
         for f in (self.removed_tr, self.pruned, self.superbubble,
                   self.low_coverage_cross, self.removed_split):
             if f is not None:
-                a &= ~f
-        return a
+                dead |= f
+        return np.logical_not(dead, out=dead)
 
     def build_adjacency(self) -> None:
         n = self.vertex_count

@@ -30,7 +30,11 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 
-from shasta_tpu_torch.graph.assembly_graph import AssemblyGraph, create_assembly_graph
+from shasta_tpu_torch.graph.assembly_graph import (
+    AssemblyGraph,
+    chain_mean_coverage,
+    create_assembly_graph,
+)
 from shasta_tpu_torch.graph.marker_graph import MarkerGraph
 
 
@@ -51,11 +55,7 @@ class _TempGraph:
         # Average marker-edge coverage per assembly edge (reference:
         # createAssemblyGraphVertices coverage metrics; integer mean).
         self.length = np.diff(ag.chain_offsets)
-        self.avg_cov = np.zeros(n_e, dtype=np.int64)
-        for e in range(n_e):
-            chain = ag.chain(e)
-            if chain.shape[0]:
-                self.avg_cov[e] = int(mg.coverage[chain].sum()) // chain.shape[0]
+        self.avg_cov = chain_mean_coverage(ag, mg.coverage)
 
         # Reverse complement of an assembly vertex.
         rc_marker_v = mg.rc_vertex[self.verts]

@@ -1,7 +1,8 @@
 """ctypes bindings for the native C++ runtime components.
 
-Compiles the repository's native/*.cpp on first use (g++ -O3 -shared)
-into the port's own build directory (shasta_tpu_torch/build/native), so
+Compiles the repository's native/*.cpp and the port's own host C++
+(csrc/*.cpp) on first use (g++ -O3 -shared) into the port's own build
+directory (shasta_tpu_torch/build/native), so
 it never shares an output file with another package's build. The host
 stages call these entry points directly: the library is required, as
 nvcc is for the card, and a failed build raises with the compiler's
@@ -24,6 +25,7 @@ _SRC = os.path.join(_REPO_ROOT, "native", "shasta_native.cpp")
 _SRCS = [
     _SRC,
     os.path.join(_REPO_ROOT, "native", "poa.cpp"),
+    os.path.join(_REPO_ROOT, "shasta_tpu_torch", "csrc", "assembly_graph.cpp"),
 ]
 _SO = os.path.join(
     os.path.dirname(os.path.abspath(__file__)), "build", "native",
@@ -573,3 +575,44 @@ def counting_sort_by_key32_native(key, starts, n_out=None):
         _i32p(order),
     )
     return order
+
+
+def condense_chains_native(source, target, rc_edge, alive, n_vertices: int):
+    """The alive marker-graph edges condensed into maximal linear chains
+    (csrc/assembly_graph.cpp), in the JAX package's order. Returns
+    (chain_offsets, chains, rc_edge, source_v, target_v, is_circular) of
+    the assembly edges: int64 but is_circular, bool. source, target and
+    rc_edge pass without a copy where all three are int32 (the marker
+    graph's) or int64."""
+    lib = get_lib()
+    n_edges = source.shape[0]
+    idx = (np.int32 if all(a.dtype == np.int32 for a in (source, target, rc_edge))
+           and n_edges < 2**31 else np.int64)
+    source, target, rc_edge = (np.ascontiguousarray(a, idx) for a in (source, target, rc_edge))
+    alive = np.ascontiguousarray(alive, bool).view(np.uint8)
+    if not target.shape == rc_edge.shape == alive.shape == (n_edges,):
+        raise ValueError("source, target, rc_edge and alive differ in shape")
+    # Unwritten capacity is never touched, so the views below cost no
+    # resident memory past what the chains fill.
+    cap = 2 * int(np.count_nonzero(alive))
+    chain_offsets = np.empty(cap + 1, np.int64)
+    chains = np.empty(cap, np.int64)
+    rc_out = np.empty(cap, np.int64)
+    source_v = np.empty(cap, np.int64)
+    target_v = np.empty(cap, np.int64)
+    circular = np.empty(cap, np.uint8)
+    fn = lib.condense_chains
+    fn.restype = ctypes.c_int64
+    n = fn(
+        ctypes.c_int64(n_edges), ctypes.c_int64(n_vertices),
+        ctypes.c_void_p(source.ctypes.data), ctypes.c_void_p(target.ctypes.data),
+        ctypes.c_void_p(rc_edge.ctypes.data), ctypes.c_int64(idx == np.int32),
+        _u8p(alive), _i64p(chain_offsets), _i64p(chains), _i64p(rc_out),
+        _i64p(source_v), _i64p(target_v), _u8p(circular),
+    )
+    if n < 0:
+        raise ValueError("an edge's vertex or reverse complement is out of range")
+    return (
+        chain_offsets[: n + 1], chains[: chain_offsets[n]], rc_out[:n],
+        source_v[:n], target_v[:n], circular[:n].view(bool),
+    )

@@ -1313,6 +1313,7 @@ def run_assembly(
 
 
 def _run_assembly_stages(a: "Assembler", input_files: List[str], t0: float) -> Dict:
+    AG.COUNTS.update(condensations=0, edges=0)
     a.add_reads(input_files)
     a.select_kmers()
     a.find_markers()
@@ -1391,6 +1392,10 @@ def _run_assembly_stages(a: "Assembler", input_files: List[str], t0: float) -> D
         summary["averageCpuUtilization"] = round(
             summary["cpuSeconds"] / summary["elapsedSeconds"], 3
         )
+    a.log.line(
+        f"Assembly graph condensations: {AG.COUNTS['condensations']}, "
+        f"marker graph edges read: {AG.COUNTS['edges']}."
+    )
     a.log.line(f"Assembly done in {summary['elapsedSeconds']:.3f} s.")
     a.log.close()
     return summary

@@ -151,12 +151,18 @@ def read_graph_input(seed, n_reads=60, n_al=170):
     return ref, port, al
 
 
-def marker_graph_pair(seed, n_vertices=3000, n_edges=5000):
+def marker_graph_pair(seed, n_vertices=3000, n_edges=5000, extra=()):
     """A strand-symmetric random marker graph (vertex v's reverse
-    complement is v ^ 1), in both packages' MarkerGraph."""
+    complement is v ^ 1), in both packages' MarkerGraph. ``extra``
+    (source, target) edges, with vertices from n_vertices up, join the
+    random ones with their reverse complements."""
     rng = np.random.default_rng(seed)
     s = rng.integers(0, n_vertices, n_edges)
     t = (s + rng.integers(1, 12, n_edges)) % n_vertices
+    if len(extra):
+        s = np.concatenate([s, np.asarray(extra)[:, 0]])
+        t = np.concatenate([t, np.asarray(extra)[:, 1]])
+        n_vertices = int(max(s.max(), t.max())) // 2 * 2 + 2
     keys = np.unique(np.concatenate([s * n_vertices + t, (t ^ 1) * n_vertices + (s ^ 1)]))
     src, tgt = keys // n_vertices, keys % n_vertices
     keys = keys[src != tgt]
@@ -495,6 +501,51 @@ def case_strict_interval_hashes_native(run):
         min_edge_coverage=3, min_edge_coverage_per_strand=0)
     assert got.edge_count > 0
     assert_same_arrays(got.arrays(), want.arrays())
+
+
+def case_condense_chains_native():
+    """create_assembly_graph on seeded strand-symmetric graphs: random
+    branching edges, a fifth of them dead (each with its reverse
+    complement), beside a self-complementary path, a self-complementary
+    cycle and a cycle with its reverse complement; then with one edge's
+    reverse complement missing (-1), and with no edge alive. Odd seeds
+    hold source, target and rc_edge in int32, as the pipeline's marker
+    graph does; even seeds in int64."""
+    n_v = 400
+    fixed = np.array([
+        (0, 2), (2, 3), (3, 1),  # its own reverse complement
+        (4, 5), (5, 6), (6, 7), (7, 4),  # a cycle, its own too
+        (8, 10), (10, 12), (12, 8),  # a cycle; 13 -> 11 -> 9 -> 13
+    ]) + n_v
+    for seed in range(4):
+        ref_mg, mg = marker_graph_pair(20 + seed, n_v, 300, extra=fixed)
+        if seed % 2:
+            for g in (mg, ref_mg):
+                g.source, g.target, g.rc_edge = (
+                    a.astype(np.int32) for a in (g.source, g.target, g.rc_edge))
+        dead = (np.random.default_rng(seed).random(mg.edge_count) < 0.2) & (mg.source < n_v)
+        dead |= dead[mg.rc_edge]
+        variants = [dead, np.ones(mg.edge_count, bool)]
+        for i, pruned in enumerate(variants):
+            for g in (mg, ref_mg):
+                g.pruned[:] = pruned
+            got = AG.create_assembly_graph(mg)
+            assert_same_arrays(got.arrays(), ref_AG.create_assembly_graph(ref_mg).arrays())
+            if i == 1:
+                assert got.edge_count == 0
+                continue
+            alive = mg.alive()
+            own = got.rc_edge == np.arange(got.edge_count)
+            assert 0 < alive.sum() < mg.edge_count
+            assert (np.bincount(mg.source[alive]) > 1).any()
+            assert (own & got.is_circular).any() and (own & ~got.is_circular).any()
+            assert (~own & got.is_circular).any() and (~own & ~got.is_circular).any()
+            assert got.chains.shape[0] == alive.sum()
+        for g in (mg, ref_mg):
+            g.pruned[:] = dead
+            g.rc_edge[np.flatnonzero(~dead)[seed]] = -1
+        assert_same_arrays(AG.create_assembly_graph(mg).arrays(),
+                           ref_AG.create_assembly_graph(ref_mg).arrays())
 
 
 def case_counting_sort_by_key_native():
